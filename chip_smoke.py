@@ -1,0 +1,360 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (`ouroboros_tpu_torch`) on one card.
+
+    python3 chip_smoke.py
+
+Run from the repository root on a machine with one NVIDIA Hopper card and
+the CUDA toolkit.  Phases:
+
+1. the card (name and power limit from nvidia-smi) and the build of the
+   four CUDA kernels from ouroboros_tpu_torch/csrc/;
+2. each kernel against its plain PyTorch version on the card, at the
+   main path's lane counts (Ed25519 4096, VRF 2048, betas 2048, KES jobs
+   8192) with tampered lanes, compared exactly, and a sample of lanes
+   against the CPU references (ed25519_ref, vrf_ref, hashlib);
+3. kernel times (CUDA events, median of 7 after a warm-up), the plain
+   versions' times, the verdict fold's and the per-key fill's times, and
+   each kernel's bound: per-lane 32-bit integer multiply-adds counted
+   from the plain version's field products, over the card's integer
+   rate, or its bytes over the memory rate, whichever is larger;
+4. the main path: `validate.drive` over six 1024-block windows of 1024
+   pools, two in flight with fold=True: windows 0-2 valid, window 3 with
+   a flipped witness signature, window 4 with a VRF proof held against
+   another input (only the device fold's challenge check sees it),
+   window 5 with a bad KES Merkle node (a cold path in a KES-warm
+   window).  Each window's first bad request must be the one the CPU
+   references find, which also check a sample of every window and the
+   betas; every kernel must have launched there.  The path runs three
+   times back to back, each on a fresh backend, to show the spread of
+   its rate beside the process's CPU seconds in each run;
+5. a `main_path` JSON line, a `kernels` JSON line, the card line, and
+   as the last line {"ok": true, "device": {...}}.
+
+Any failure raises and exits non-zero before the last line.  Without a
+card, or without the rest of the repository beside it, it exits 2.
+"""
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+SEED = 0
+WINDOWS = 6
+WINDOW = 1024
+POOLS = 1024
+# window -> (block, windowgen's tamper function, position in the block)
+TAMPERS = {3: (517, "tamper_witness", "FIRST_WITNESS"),
+           4: (300, "tamper_vrf_alpha", "LEADER_VRF"),
+           5: (700, "tamper_kes_node", "KES_SIG")}
+RUNS = 3                     # back-to-back runs of the main path
+SAMPLE = 16                  # blocks per window held against the CPU refs
+# H100 SXM: HBM3 at 3.35 TB/s (NVIDIA data sheet); 64 results per clock
+# per SM for 32-bit integer add, logic, shift and multiply-add at compute
+# capability 9.0 (CUDA C++ Programming Guide, arithmetic instructions)
+HBM_BYTES_PER_S = 3.35e12
+INT32_PER_CLOCK_PER_SM = 64
+# blake2b compression: 12 rounds x 8 mixes of six 64-bit adds, four xors
+# and three non-trivial rotations, each two 32-bit operations, plus the
+# digest xors and the compare
+KES_INT_OPS = 12 * 8 * (6 + 4 + 3) * 2 + 4 * 2 * 2 + 8
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def smi(query: str) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def cuda_ms(fn, reps: int = 7) -> float:
+    """Median milliseconds of fn() over `reps` runs, CUDA events, after a
+    warm-up run."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    try:
+        from ouroboros_tpu_torch import validate, windowgen
+        from ouroboros_tpu_torch.crypto import (
+            blake2b as B2, ed25519 as E, ed25519_ref, edwards as ed,
+            field as F, kernels as K, vrf as V, vrf_ref)
+        from ouroboros_tpu_torch.crypto.backend import (
+            CpuRefBackend, Ed25519Req, VrfReq)
+        from ouroboros_tpu_torch.crypto.torch_backend import (
+            TorchBackend, fold_window)
+    except ImportError as e:
+        print(f"chip_smoke: the port is not beside this script ({e})",
+              file=sys.stderr)
+        return 2
+    import hashlib
+
+    import numpy as np
+
+    # -- 1. card and build -------------------------------------------------
+    card = smi("name,power.limit")
+    log("card:", card)
+    t = time.perf_counter()
+    K.library()
+    log(f"build seconds: {time.perf_counter() - t:.3f}")
+    for entry in K.BUILD_LOG:
+        for line in entry.splitlines():
+            if line.startswith("==") or "registers" in line or \
+                    "stack frame" in line and "bytes spill" in line:
+                log("  " + line.strip())
+    dev = torch.device("cuda")
+    props = torch.cuda.get_device_properties(0)
+    clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
+    int_rate = props.multi_processor_count * INT32_PER_CLOCK_PER_SM * clock_hz
+
+    # -- data ---------------------------------------------------------------
+    workers = os.cpu_count() or 1
+    t = time.perf_counter()
+    windows = windowgen.make_windows(SEED, WINDOWS, WINDOW, POOLS, workers)
+    log(f"data generation seconds: {time.perf_counter() - t:.3f} "
+        f"({workers} workers, {WINDOWS} x {WINDOW} blocks)")
+
+    # -- 2. kernels against their plain versions ----------------------------
+    aux = TorchBackend()
+    reqs0 = [r for b in windows[0] for r in b]
+    (ed_reqs, _eo, vrf_reqs, _vo, kes_msgs, kes_exps, _kc,
+     _n) = aux._split_mixed_device(reqs0)
+    bad_R = next(y for y in range(2, 100)
+                 if ed.decompress(y.to_bytes(32, "little")) is None)
+    bad_pt = bad_R.to_bytes(32, "little")
+    L_bytes = ed.L.to_bytes(32, "little")
+
+    def edit(r, **kw):
+        return type(r)(**{**r.__dict__, **kw})
+    ed_t = list(ed_reqs)
+    ed_t[1] = edit(ed_t[1], sig=ed_t[1].sig[:50] + bytes([ed_t[1].sig[50] ^ 4])
+                   + ed_t[1].sig[51:])                     # flipped byte
+    ed_t[2] = edit(ed_t[2], sig=ed_t[2].sig[:32] + L_bytes)   # s >= L
+    ed_t[3] = edit(ed_t[3], sig=bad_pt + ed_t[3].sig[32:])    # R off curve
+    vrf_t = list(vrf_reqs)
+    vrf_t[1] = edit(vrf_t[1], alpha=b"wrong alpha")
+    vrf_t[2] = edit(vrf_t[2], proof=bad_pt + vrf_t[2].proof[32:])
+    vrf_t[3] = edit(vrf_t[3], proof=vrf_t[3].proof[:48] + L_bytes)
+    beta_t = [r.proof for b in windows[1] for r in b if isinstance(r, VrfReq)]
+    beta_t[1] = bad_pt + beta_t[1][32:]
+    beta_t[2] = bytes([beta_t[2][0] ^ 1]) + beta_t[2][1:]
+    kes_m = list(kes_msgs)
+    kes_m[1] = bytes(32) + kes_m[1][32:]                      # bad node
+
+    with torch.cuda.stream(aux._stream):
+        ed_args, ed_ok = aux._prep_ed(ed_t, aux._pad(len(ed_t)))
+        vrf_args, (v_ok, v_gok, v_sok, v_pf) = aux._prep_vrf(
+            vrf_t, aux._pad(len(vrf_t)))
+        beta_args, beta_dec = aux._prep_betas(beta_t, aux._pad(len(beta_t)))
+        kes_args = aux._prep_kes_hash(kes_m, kes_exps, aux._pad(len(kes_m)))
+    torch.cuda.synchronize()
+    inputs = {"ed25519_split": ed_args, "vrf_verify": vrf_args,
+              "gamma8": beta_args, "kes_hash": kes_args}
+    lanes = {k: v[0].shape[-1] for k, v in inputs.items()}
+    log("main-path lanes:", lanes)
+    wrappers = {"ed25519_split": K.ed25519_split, "vrf_verify": K.vrf_verify,
+                "gamma8": K.gamma8, "kes_hash": K.kes_hash}
+    outputs, max_err = {}, {}
+    for name, args in inputs.items():
+        got = wrappers[name](*args)
+        want = K.KERNELS[name].plain(*args)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        max_err[name] = err
+        if tuple(got.shape) != tuple(want.shape) or err != 0:
+            raise AssertionError(f"{name}: kernel != plain version "
+                                 f"(max abs err {err})")
+        outputs[name] = got.cpu().numpy()
+        log(f"{name}: kernel == plain version on {lanes[name]} lanes "
+            f"(integer outputs, compared exactly: tolerance 0)")
+    # a sample of lanes against the CPU references
+    ed_got = outputs["ed25519_split"]
+    for j in list(range(32)):
+        r = ed_t[j]
+        ok = bool(ed_got[j]) and bool(ed_ok[j])
+        if ok != ed25519_ref.verify(r.vk, r.msg, r.sig):
+            raise AssertionError(f"ed25519_split lane {j} != ed25519_ref")
+    oks, betas = V._finish(outputs["vrf_verify"], v_ok, v_gok, v_sok, v_pf,
+                           32)
+    for j in range(32):
+        r = vrf_t[j]
+        if oks[j] != vrf_ref.verify(r.vk, r.alpha, r.proof):
+            raise AssertionError(f"vrf_verify lane {j} != vrf_ref")
+    g8 = V._finish_betas(outputs["gamma8"], beta_dec, 32)
+    for j in range(32):
+        try:
+            want = vrf_ref.proof_to_hash(beta_t[j])
+        except ValueError:
+            want = None
+        if g8[j] != want:
+            raise AssertionError(f"gamma8 lane {j} != vrf_ref.proof_to_hash")
+    kes_got = outputs["kes_hash"]
+    for j, (m, e) in enumerate(zip(kes_m, kes_exps)):
+        if bool(kes_got[j]) != (hashlib.blake2b(m, digest_size=32).digest()
+                                == e):
+            raise AssertionError(f"kes_hash lane {j} != hashlib")
+    if ed_got[1] or ed_ok[2] or ed_got[3] or oks[1] or oks[2] or oks[3] \
+            or g8[1] is not None or kes_got[1]:
+        raise AssertionError("a tampered lane passed")
+    log("sample lanes == CPU references (tampered lanes rejected)")
+
+    # -- 3. times and bounds --------------------------------------------------
+    report = []
+    for name, args in inputs.items():
+        ms = cuda_ms(lambda: wrappers[name](*args))
+        plain_ms = cuda_ms(lambda: K.KERNELS[name].plain(*args), reps=5)
+        n = lanes[name]
+        if name == "kes_hash":
+            ops = n * KES_INT_OPS
+        else:
+            one = [a[..., :1].cpu() for a in args]
+            F.COUNTS.update(mul=0, sqr=0)
+            K.KERNELS[name].plain(*one)
+            ops = n * (100 * F.COUNTS["mul"] + 55 * F.COUNTS["sqr"])
+        nbytes = sum(a.numel() * a.element_size() for a in args) + \
+            outputs[name].nbytes
+        ops_ms = ops / int_rate * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        report.append({
+            "name": name, "route": "cuda", "source": K.KERNELS[name].source,
+            "replaces": K.KERNELS[name].replaces, "launches": 0,
+            "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": None})
+        log(f"{name}: {ms:.4f} ms kernel, {plain_ms:.3f} ms plain, "
+            f"bound {max(ops_ms, bytes_ms):.4f} ms ({ops} int ops, "
+            f"{nbytes} bytes), {n} lanes")
+    packed = torch.cat([
+        K.ed25519_split(*ed_args).to(torch.uint8),
+        K.vrf_verify(*vrf_args).reshape(-1),
+        K.gamma8(*beta_args).reshape(-1),
+        K.kes_hash(*kes_args).to(torch.uint8)])
+    ne, nv, nb, nk = (lanes[k] for k in inputs)
+    own = [torch.arange(n, dtype=torch.int32, device=dev) for n in (ne, nv)]
+    gam = torch.from_numpy(np.ascontiguousarray(v_pf[:, :32])).to(dev)
+    cb = torch.from_numpy(np.ascontiguousarray(v_pf[:, 32:48])).to(dev)
+    fold_ms = cuda_ms(lambda: fold_window(packed, ne, nv, nb, nk, own[0],
+                                          own[1], gam, cb), reps=5)
+    wit = [r.vk for b in windows[0] for r in b[windowgen.FIRST_WITNESS:]]
+    yw, sgn, _ok = E._decode_compressed(
+        np.frombuffer(b"".join(wit), np.uint8).reshape(-1, 32))
+    ya = F.limbs_from_words(torch.from_numpy(yw).to(dev))
+    sg = torch.from_numpy(sgn).to(dev)
+    fill_ms = cuda_ms(lambda: E.a128_core(ya, sg), reps=5)
+    log(f"fold (torch ops, {ne}/{nv}/{nb}/{nk} lanes): {fold_ms:.3f} ms; "
+        f"a128 fill (torch ops, {len(wit)} keys): {fill_ms:.3f} ms")
+
+    # -- 4. the main path -----------------------------------------------------
+    bad_req = {}
+    for w, (b, fn, pos) in TAMPERS.items():
+        windows[w][b] = getattr(windowgen, fn)(windows[w][b])
+        bad_req[w] = b * windowgen.REQS_PER_BLOCK + getattr(windowgen, pos)
+    runs = []
+    for run in range(RUNS):
+        backend = TorchBackend()
+        K.reset_launches()
+        cpu0 = time.process_time()
+        res = validate.drive(windows, backend)
+        res.update(launches=dict(K.LAUNCHES),
+                   cpu_s=time.process_time() - cpu0)
+        runs.append(res)
+        log(f"run {run}: {res['blocks_per_s']:.1f} blocks/s, "
+            f"{res['proofs_per_s']:.1f} proofs/s ({res['seconds']:.3f} s "
+            f"wall, {res['cpu_s']:.3f} s process CPU), "
+            f"launches {res['launches']}")
+        for r in res["windows"]:
+            want = bad_req.get(r["window"])
+            if r["first_bad_request"] != want:
+                raise AssertionError(
+                    f"run {run} window {r['window']}: first bad request "
+                    f"{r['first_bad_request']}, expected {want}")
+        missing = [k for k, v in res["launches"].items() if v == 0]
+        if missing:
+            raise AssertionError(f"kernels not launched on the main path: "
+                                 f"{missing}")
+    res = runs[0]
+    launches = res["launches"]
+    for r in res["windows"]:
+        log(f"window {r['window']}: {r['blocks']} blocks, {r['requests']} "
+            f"requests, first bad block {r['first_bad_block']} (request "
+            f"{r['first_bad_request']}), submit {r['submit_s']:.4f} s, "
+            f"wait {r['wait_s']:.4f} s")
+    # the port's CPU oracle: every tampered block fails at exactly the
+    # request the card reported, and a sample of each window passes
+    cpu = CpuRefBackend()
+    n_checked = 0
+    for wi, blocks in enumerate(windows):
+        tb = TAMPERS.get(wi, (None,))[0]
+        picks = sorted({0, len(blocks) - 1,
+                        *range(1, len(blocks), len(blocks) // SAMPLE)}
+                       | ({tb} if tb is not None else set()))
+        for bi in picks:
+            ok = cpu.verify_mixed(blocks[bi])
+            n_checked += 1
+            fails = [bi * windowgen.REQS_PER_BLOCK + i
+                     for i, o in enumerate(ok) if not o]
+            if fails != ([bad_req[wi]] if bi == tb else []):
+                raise AssertionError(f"CPU reference fails requests {fails} "
+                                     f"of window {wi} block {bi}")
+    proofs = [r.proof for wi in range(1, WINDOWS)
+              for r in windows[wi][7] if isinstance(r, VrfReq)]
+    proofs += [r.proof for r in windows[2][1000] if isinstance(r, VrfReq)]
+    for run in runs:
+        for p in proofs:
+            if run["betas"].get(p) != vrf_ref.proof_to_hash(p):
+                raise AssertionError("beta != vrf_ref.proof_to_hash")
+    log(f"main path: {res['blocks_per_s']:.1f} blocks/s, "
+        f"{res['proofs_per_s']:.1f} proofs/s over {WINDOWS} windows "
+        f"({res['seconds']:.3f} s); first bad requests == CPU references "
+        f"({n_checked} blocks checked), {len(proofs)} betas == vrf_ref "
+        f"in each of {RUNS} runs")
+
+    # -- 5. report ------------------------------------------------------------
+    for entry in report:
+        entry["launches"] = launches[entry["name"]]
+    print(json.dumps({"main_path": {
+        "fold_ms": fold_ms, "a128_fill_ms": fill_ms,
+        "blocks_per_s": [r["blocks_per_s"] for r in runs],
+        "proofs_per_s": [r["proofs_per_s"] for r in runs],
+        "seconds": [r["seconds"] for r in runs],
+        "cpu_s": [r["cpu_s"] for r in runs],
+        "submit_s": [r["submit_s"] for r in res["windows"]],
+        "wait_s": [r["wait_s"] for r in res["windows"]]}}))
+    print(json.dumps({"kernels": report}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,337 @@
+"""Batched Ed25519 split-128 verification — host prep and plain PyTorch
+versions.
+
+Ported from `ouroboros_tpu/crypto/ed25519_jax.py`.  Host side (numpy +
+hashlib): byte parsing, canonical-y and s < L checks, k = SHA-512(R || A ||
+msg) mod L, packing into (8, N) little-endian uint32 words.  Device side:
+decompress R, the 16-entry split table over {1, B, B', B+B'} x {1, -A,
+-A', -A-A'} (B' = [2^128]B constant, A' = [2^128]A from the per-key cache)
+and a 128-step ladder of one doubling plus one cached addition, accept iff
+the result equals R projectively.
+
+`verify_full_split_words_core` is the plain version of the `ed25519_split`
+CUDA kernel (../csrc/ed25519_split.cu) and `a128_core` is the per-key
+fill, which stays PyTorch ops as in the JAX package.  Every formula
+mirrors the JAX one field op for field op, so even lanes with off-curve
+garbage give the same bytes.
+
+Accept criterion: libsodium-compatible cofactorless verify, [s]B == R +
+[k]A, with s < L enforced and non-canonical A/R rejected (ed25519_ref).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import edwards as ed
+from . import field as F
+
+L = ed.L
+_2D = (2 * ed.D) % ed.P
+
+# ---------------------------------------------------------------------------
+# Point ops on batched limb tensors: point = (X, Y, Z, T) of (10, N)
+# ---------------------------------------------------------------------------
+
+
+def _cat(*xs):
+    return torch.cat(xs, dim=1)
+
+
+def _split(h, parts: int):
+    return h.chunk(parts, dim=1)
+
+
+def pt_add(p, q):
+    X1, Y1, Z1, T1 = p
+    X2, Y2, Z2, T2 = q
+    A, B, TT, ZZ = _split(F.mul(_cat(F.sub(Y1, X1), F.add(Y1, X1), T1, Z1),
+                                _cat(F.sub(Y2, X2), F.add(Y2, X2), T2, Z2)),
+                          4)
+    C = F.mul(TT, F.const(_2D, TT))
+    D = F.add(ZZ, ZZ)
+    E, Fv, G, H = F.sub(B, A), F.sub(D, C), F.add(D, C), F.add(B, A)
+    return _split(F.mul(_cat(E, G, Fv, E), _cat(Fv, H, G, H)), 4)
+
+
+def pt_double(p):
+    X, Y, Z, _ = p
+    A, B, ZZ, XY2 = _split(F.sqr(_cat(X, Y, Z, F.add(X, Y))), 4)
+    C = F.add(ZZ, ZZ)
+    H = F.add(A, B)
+    E = F.sub(H, XY2)
+    G = F.sub(A, B)
+    Fv = F.add(C, G)
+    return _split(F.mul(_cat(E, G, Fv, E), _cat(Fv, H, G, H)), 4)
+
+
+# -- cached-point form: q as (Y-X, Y+X, 2Z, 2dT), ref10's "ge_cached"
+
+def to_cached(q):
+    X2, Y2, Z2, T2 = q
+    return (F.sub(Y2, X2), F.add(Y2, X2), F.add(Z2, Z2),
+            F.mul(T2, F.const(_2D, T2)))
+
+
+def const_cached(x: int, y: int, ref):
+    """Cached form of a CONSTANT affine point (Z = 1)."""
+    return (F.const((y - x) % ed.P, ref), F.const((y + x) % ed.P, ref),
+            F.const(2, ref), F.const(2 * ed.D * x * y % ed.P, ref))
+
+
+def ident_cached(ref):
+    """Cached form of the identity (0, 1, 1, 0) -> (1, 1, 2, 0)."""
+    return (F.const(1, ref), F.const(1, ref), F.const(2, ref),
+            F.const(0, ref))
+
+
+def pt_add_cached(p, q):
+    """p (extended) + q (cached): 8 field muls."""
+    X1, Y1, Z1, T1 = p
+    c0, c1, z2, t2 = q
+    A, B, C, D = _split(F.mul(_cat(F.sub(Y1, X1), F.add(Y1, X1), T1, Z1),
+                              _cat(c0, c1, t2, z2)), 4)
+    E, Fv, G, H = F.sub(B, A), F.sub(D, C), F.add(D, C), F.add(B, A)
+    return _split(F.mul(_cat(E, G, Fv, E), _cat(Fv, H, G, H)), 4)
+
+
+def _identity_like(ref):
+    return (F.const(0, ref), F.const(1, ref), F.const(1, ref),
+            F.const(0, ref))
+
+
+def const_point(x: int, y: int, ref):
+    """Extended form of a constant affine point."""
+    return (F.const(x, ref), F.const(y, ref), F.const(1, ref),
+            F.const(x * y % ed.P, ref))
+
+
+def stack_table(table):
+    """List of k cached points -> (k, 40, N) for `select`."""
+    return torch.stack([torch.cat(t) for t in table])
+
+
+def select(stacked, idx):
+    """Per-lane table lookup: entry idx[j] of lane j, as a cached point."""
+    _k, rows, n = stacked.shape
+    sel = stacked.gather(0, idx.to(torch.int64).view(1, 1, n)
+                         .expand(1, rows, n))[0]
+    return sel.chunk(4, dim=0)
+
+
+# ---------------------------------------------------------------------------
+# Decompression (RFC 8032 §5.1.3), device_decompress:469
+# ---------------------------------------------------------------------------
+
+def device_decompress(y, sign):
+    """y: (10, N) carried limbs of canonical y; sign: (N,) x-parity bit.
+    Returns (x, ok): x with the requested parity (carried limbs); ok False
+    where no square root exists or x == 0 with sign == 1."""
+    one = F.const(1, y)
+    y2 = F.sqr(y)
+    u = F.sub(y2, one)
+    v = F.add(F.mul(F.const(ed.D, y), y2), one)
+    v3 = F.mul(F.sqr(v), v)
+    v7 = F.mul(F.sqr(v3), v)
+    xc = F.mul(F.mul(u, v3), F.pow_p58(F.mul(u, v7)))
+    vx2 = F.mul(v, F.sqr(xc))
+    root_direct = F.is_zero(F.sub(vx2, u))
+    root_twist = F.is_zero(F.add(vx2, u))
+    ok = root_direct | root_twist
+    x_twist = F.mul(xc, F.const(ed.SQRT_M1, y))
+    x = F.canon(torch.where(root_direct, xc, x_twist))
+    sign = sign.to(torch.int64)
+    x_is_zero = (x == 0).all(dim=0)
+    ok = ok & ~(x_is_zero & (sign == 1))
+    x = torch.where(F.parity(x) != sign, -x, x)
+    return F.carry_round(x), ok
+
+
+# ---------------------------------------------------------------------------
+# Split-128 ladder: s = s_lo + 2^128 s_hi, k = k_lo + 2^128 k_hi, so
+#   Q = [s_lo]B + [s_hi]B' + [k_lo](-A) + [k_hi](-A')
+# ---------------------------------------------------------------------------
+
+_GX_AFF, _GY_AFF = ed.to_affine(ed.BASE)
+_B128X, _B128Y = ed.to_affine(ed.scalar_mult(1 << 128, ed.BASE))
+_BB128X, _BB128Y = ed.to_affine(ed.scalar_mult((1 << 128) + 1, ed.BASE))
+SPLIT_CONSTS = ((_GX_AFF, _GY_AFF), (_B128X, _B128Y), (_BB128X, _BB128Y))
+
+
+def split_table_16(negA, negA128):
+    """16 cached-form entries T[c + 4v]: c indexes the constant half
+    {1, B, B', B+B'}, v the variable half {1, -A, -A', -A-A'}."""
+    ref = negA[0]
+    consts_aff = (None,) + SPLIT_CONSTS
+    var_ext = (None, negA, negA128, pt_add(negA, negA128))
+    table = []
+    for v in range(4):
+        for c in range(4):
+            if v == 0 and c == 0:
+                table.append(ident_cached(ref))
+            elif v == 0:
+                table.append(const_cached(*consts_aff[c], ref))
+            elif c == 0:
+                table.append(to_cached(var_ext[v]))
+            else:
+                table.append(to_cached(pt_add(
+                    var_ext[v], const_point(*consts_aff[c], ref))))
+    return table
+
+
+def split_idx_rows(s_words, k_words):
+    """(8, N) uint32 scalar words -> (128, N) joint window digits: row i =
+    s_lo + 2·s_hi + 4·k_lo + 8·k_hi at ladder iteration i (MSB-first
+    within each 128-bit half)."""
+    rows = []
+    for i in range(128):
+        rows.append(F.bit_from_words(s_words, 127 - i)
+                    + 2 * F.bit_from_words(s_words, 255 - i)
+                    + 4 * F.bit_from_words(k_words, 127 - i)
+                    + 8 * F.bit_from_words(k_words, 255 - i))
+    return torch.stack(rows)
+
+
+def verify_full_split_words_core(Aw, xAw, A128xw, A128yw, Rw, signR,
+                                 s_words, k_words):
+    """Plain version of the `ed25519_split` kernel.  All 256-bit inputs
+    are (8, N) uint32 words; A's affine x and [2^128]A come from the
+    per-key cache, so callers MUST mask lanes whose key the cache did not
+    know.  Returns (N,) int32 0/1."""
+    yA = F.limbs_from_words(Aw)
+    xA = F.limbs_from_words(xAw)
+    yR = F.limbs_from_words(Rw)
+    xA128 = F.limbs_from_words(A128xw)
+    yA128 = F.limbs_from_words(A128yw)
+    xR, okR = device_decompress(yR, signR.reshape(-1))
+    one = F.const(1, yA)
+    nax = F.sub(F.const(0, yA), xA)
+    negA = (nax, yA, one, F.mul(nax, yA))
+    nax128 = F.sub(F.const(0, yA), xA128)
+    negA128 = (nax128, yA128, one, F.mul(nax128, yA128))
+    table = stack_table(split_table_16(negA, negA128))
+    idx = split_idx_rows(s_words, k_words)
+    Q = _identity_like(yA)
+    for i in range(128):
+        Q = pt_add_cached(pt_double(Q), select(table, idx[i]))
+    X, Y, Z, _ = Q
+    d1 = F.sub(F.mul(xR, Z), X)
+    d2 = F.sub(F.mul(yR, Z), Y)
+    return (okR & F.is_zero(d1) & F.is_zero(d2)).to(torch.int32)
+
+
+def a128_core(yA, signA):
+    """Per-key precompute: decompress A, then [2^128]A by 128 doublings
+    and one inversion to canonical affine.  Returns (xA, x128, y128, ok),
+    the first three as canonical digits."""
+    xA, ok = device_decompress(yA, signA)
+    one = F.const(1, yA)
+    P = (xA, yA, one, F.mul(xA, yA))
+    for _ in range(128):
+        P = pt_double(P)
+    Zi = F.pow_inv(P[2])
+    return (F.canon(xA), F.canon(F.mul(P[0], Zi)),
+            F.canon(F.mul(P[1], Zi)), ok)
+
+
+# ---------------------------------------------------------------------------
+# Host prep (numpy; ed25519_jax.py:389-752)
+# ---------------------------------------------------------------------------
+
+def _words_of_int(v: int) -> np.ndarray:
+    return np.frombuffer(int(v).to_bytes(32, "little"),
+                         dtype=np.uint32).copy()
+
+
+# filler for padding / undecodable keys: any valid point works, such
+# lanes are masked invalid before the result is read
+_B128X_W = _words_of_int(_B128X)
+_B128Y_W = _words_of_int(_B128Y)
+_GX_W = _words_of_int(_GX_AFF)
+
+
+def words_from_bytes_rows(arr: np.ndarray) -> np.ndarray:
+    """(N, 32) uint8 little-endian byte rows -> (8, N) uint32 words."""
+    return np.ascontiguousarray(
+        arr.reshape(-1, 8, 4).view(np.uint32)[:, :, 0].T)
+
+
+def _bytes_rows(items, width) -> tuple[np.ndarray, np.ndarray]:
+    """Stack byte strings into an (N, width) uint8 array; wrong-length rows
+    become zeros with ok=False."""
+    n = len(items)
+    ok = np.ones(n, dtype=bool)
+    bad = [j for j, b in enumerate(items) if len(b) != width]
+    if bad:
+        items = list(items)
+        for j in bad:
+            items[j] = b"\x00" * width
+            ok[j] = False
+    arr = np.frombuffer(b"".join(items), dtype=np.uint8).reshape(n, width)
+    return arr, ok
+
+
+def _decode_compressed(arr: np.ndarray):
+    """(N, 32) little-endian compressed points -> (y words (8, N) uint32
+    with the sign bit cleared, sign (N,) int32, ok (N,) canonical-y
+    mask).  The port's form of ed25519_jax._decode_compressed, which
+    returned radix-2^13 limbs; the words carry the same value."""
+    sign = (arr[:, 31] >> 7).astype(np.int32)
+    clear = arr.copy()
+    clear[:, 31] &= 0x7F
+    return words_from_bytes_rows(clear), sign, _y_canonical(arr)
+
+
+def _scalar_lt_L(s_rows: np.ndarray) -> np.ndarray:
+    """(N, 32) little-endian scalars: mask of s < L."""
+    top = s_rows[:, 31]
+    ok = top < 0x10
+    borderline = np.nonzero(top == 0x10)[0]
+    for j in borderline:
+        s = int.from_bytes(s_rows[j].tobytes(), "little")
+        ok[j] = s < L
+    return ok
+
+
+def _y_canonical(arr: np.ndarray) -> np.ndarray:
+    """(N, 32) little-endian point rows: mask of y < p with the sign bit
+    ignored (y >= p iff the 255 low bits are all-ones down to byte 1 and
+    byte 0 >= 0xED, since p = 2^255 - 19)."""
+    return ~(((arr[:, 31] & 0x7F) == 0x7F)
+             & (arr[:, 1:31] == 0xFF).all(axis=1)
+             & (arr[:, 0] >= 0xED))
+
+
+def prepare_words_batch(vks, msgs, sigs):
+    """Packed-words host prep for verify_full_split_words_core.
+
+    Returns ((Aw, signA, Rw, signR, sw, kw), parse_ok): the 256-bit
+    inputs as (8, N) uint32 word rows (sign bits cleared out of Aw/Rw
+    into the (N,) int32 sign vectors)."""
+    n = len(vks)
+    vk_arr, vk_ok = _bytes_rows(vks, 32)
+    sig_arr, sig_ok = _bytes_rows(sigs, 64)
+    signA = (vk_arr[:, 31] >> 7).astype(np.int32)
+    signR = (sig_arr[:, 31] >> 7).astype(np.int32)
+    a_ok = _y_canonical(vk_arr)
+    r_ok = _y_canonical(sig_arr[:, :32])
+    s_rows = np.ascontiguousarray(sig_arr[:, 32:])
+    s_ok = _scalar_lt_L(s_rows)
+    parse_ok = vk_ok & sig_ok & a_ok & r_ok & s_ok
+    vk_clear = vk_arr.copy()
+    vk_clear[:, 31] &= 0x7F
+    r_clear = sig_arr[:, :32].copy()
+    r_clear[:, 31] &= 0x7F
+    k_bytes = bytearray()
+    for j in range(n):
+        if parse_ok[j]:
+            k = ed.sha512_int(bytes(sig_arr[j, :32]), bytes(vk_arr[j]),
+                              msgs[j]) % L
+        else:
+            k = 0
+        k_bytes += k.to_bytes(32, "little")
+    k_rows = np.frombuffer(bytes(k_bytes), dtype=np.uint8).reshape(n, 32)
+    return ((words_from_bytes_rows(vk_clear), signA,
+             words_from_bytes_rows(r_clear), signR,
+             words_from_bytes_rows(s_rows),
+             words_from_bytes_rows(k_rows)), parse_ok)

@@ -1,0 +1,64 @@
+"""Import discipline of the PyTorch/CUDA port, and its refusal to run on
+the CPU unless asked.
+
+The port (`ouroboros_tpu_torch`) must import neither JAX nor anything of
+the JAX package, so it runs where JAX is not installed; its entry points
+run on the CUDA card and raise without one.
+"""
+import subprocess
+import sys
+
+import pytest
+import torch
+
+_CHECK = r"""
+import importlib, pkgutil, sys
+import ouroboros_tpu_torch
+names = ["ouroboros_tpu_torch"] + [
+    m.name for m in pkgutil.walk_packages(ouroboros_tpu_torch.__path__,
+                                          "ouroboros_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "ouroboros_tpu" or m.startswith("ouroboros_tpu."))
+print(len(names), bad)
+assert not bad, bad
+"""
+
+
+def test_port_imports_no_jax_and_nothing_of_the_jax_package():
+    out = subprocess.run([sys.executable, "-c", _CHECK], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    n_modules = int(out.stdout.split()[0])
+    assert n_modules >= 17          # every module of the slice imported
+
+
+def _require_no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; this checks the no-card path")
+
+
+def test_default_device_raises_without_a_card():
+    _require_no_card()
+    from ouroboros_tpu_torch import device
+    with pytest.raises(RuntimeError):
+        device.default_device()
+    with pytest.raises(RuntimeError):
+        device.resolve("cuda")
+    assert device.resolve("cpu").type == "cpu"
+
+
+def test_backend_and_validate_raise_without_a_card():
+    _require_no_card()
+    from ouroboros_tpu_torch import validate
+    from ouroboros_tpu_torch.crypto.torch_backend import TorchBackend
+    with pytest.raises(RuntimeError):
+        TorchBackend()
+    with pytest.raises(RuntimeError):
+        validate.run(n_windows=1, window=1, pools=1)
+    with pytest.raises(RuntimeError):
+        validate.main(["--windows", "1", "--window", "1", "--pools", "1",
+                       "--workers", "1"])
+    assert TorchBackend(device="cpu").device_kind == "cpu"
