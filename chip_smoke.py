@@ -7,11 +7,12 @@ Run from the repository root on a machine with one NVIDIA Hopper card and
 the CUDA toolkit.  Phases:
 
 1. the card (name and power limit from nvidia-smi) and the build of the
-   four CUDA kernels from ouroboros_tpu_torch/csrc/;
+   five CUDA kernels from ouroboros_tpu_torch/csrc/;
 2. each kernel against its plain PyTorch version on the card, at the
    main path's lane counts (Ed25519 4096, VRF 2048, betas 2048, KES jobs
-   8192) with tampered lanes, compared exactly, and a sample of lanes
-   against the CPU references (ed25519_ref, vrf_ref, hashlib);
+   8192; the full Ed25519 verify on the same 4096 requests with A-side
+   tampers added) with tampered lanes, compared exactly, and a sample of
+   lanes against the CPU references (ed25519_ref, vrf_ref, hashlib);
 3. kernel times (CUDA events, median of 7 after a warm-up), the plain
    versions' times, the verdict fold's and the per-key fill's times, and
    each kernel's bound: per-lane 32-bit integer multiply-adds counted
@@ -24,11 +25,17 @@ the CUDA toolkit.  Phases:
    window 5 with a bad KES Merkle node (a cold path in a KES-warm
    window).  Each window's first bad request must be the one the CPU
    references find, which also check a sample of every window and the
-   betas; every kernel must have launched there.  The path runs three
-   times back to back, each on a fresh backend, to show the spread of
-   its rate beside the process's CPU seconds in each run;
-5. a `main_path` JSON line, a `kernels` JSON line, the card line, and
-   as the last line {"ok": true, "device": {...}}.
+   betas; each of the four window kernels must have launched there.  The
+   path runs three times back to back, each on a fresh backend, to show
+   the spread of its rate beside the process's CPU seconds in each run;
+5. the standalone batch-verify path: `perf_probe --old` at 4096 Ed25519
+   and 2048 VRF lanes (split and full Ed25519 verify, VRF verify, betas;
+   each row asserts that every lane verifies), where ed25519_verify and
+   the three kernels the probe drives must launch;
+6. a `main_path` JSON line, a `kernels` JSON line (each kernel's
+   launches are those of its path: the main path's, or the probe's for
+   ed25519_verify), the card line, and as the last line
+   {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero before the last line.  Without a
 card, or without the rest of the repository beside it, it exits 2.
@@ -61,6 +68,10 @@ INT32_PER_CLOCK_PER_SM = 64
 # and three non-trivial rotations, each two 32-bit operations, plus the
 # digest xors and the compare
 KES_INT_OPS = 12 * 8 * (6 + 4 + 3) * 2 + 4 * 2 * 2 + 8
+# the kernels each path must launch
+MAIN_PATH = ("ed25519_split", "vrf_verify", "gamma8", "kes_hash")
+PROBE_PATH = ("ed25519_split", "ed25519_verify", "vrf_verify", "gamma8")
+PROBE_ARGS = ["--reps", "5", "--n-ed", "4096", "--n-vrf", "2048", "--old"]
 
 
 def log(*a):
@@ -102,7 +113,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
-        from ouroboros_tpu_torch import validate, windowgen
+        from ouroboros_tpu_torch import perf_probe, validate, windowgen
         from ouroboros_tpu_torch.crypto import (
             blake2b as B2, ed25519 as E, ed25519_ref, edwards as ed,
             field as F, kernels as K, vrf as V, vrf_ref)
@@ -167,6 +178,23 @@ def main() -> int:
     beta_t[2] = bytes([beta_t[2][0] ^ 1]) + beta_t[2][1:]
     kes_m = list(kes_msgs)
     kes_m[1] = bytes(32) + kes_m[1][32:]                      # bad node
+    # the full verify decompresses A too: lanes the split kernel never sees
+    rf = int.from_bytes(hashlib.sha256(b"forged").digest(), "little") % ed.L
+    forged = ed.compress(ed.scalar_mult(rf, ed.BASE)) + \
+        rf.to_bytes(32, "little")
+    ed_f = list(ed_t)
+    ed_f[4] = edit(ed_f[4], vk=bad_pt)                        # A off curve
+    ed_f[5] = edit(ed_f[5], vk=(1 | 1 << 255).to_bytes(32, "little"),
+                   sig=forged)              # y = 1, sign 1: x = 0, no A
+    ed_f[6] = edit(ed_f[6], vk=(ed.P - 1).to_bytes(32, "little"))  # order 2
+    ed_f[7] = edit(ed_f[7], vk=ed.P.to_bytes(32, "little"))   # y_A = p
+    ed_f[8] = edit(ed_f[8], vk=(1).to_bytes(32, "little"),
+                   sig=forged)              # the identity: (R, s = r) holds
+    pad = aux._pad(len(ed_f)) - len(ed_f)
+    full_arrays, full_parse = E.prepare_words_batch(
+        [x.vk for x in ed_f] + [bytes(32)] * pad,
+        [x.msg for x in ed_f] + [b""] * pad,
+        [x.sig for x in ed_f] + [bytes(64)] * pad)
 
     with torch.cuda.stream(aux._stream):
         ed_args, ed_ok = aux._prep_ed(ed_t, aux._pad(len(ed_t)))
@@ -176,11 +204,12 @@ def main() -> int:
         kes_args = aux._prep_kes_hash(kes_m, kes_exps, aux._pad(len(kes_m)))
     torch.cuda.synchronize()
     inputs = {"ed25519_split": ed_args, "vrf_verify": vrf_args,
-              "gamma8": beta_args, "kes_hash": kes_args}
+              "gamma8": beta_args, "kes_hash": kes_args,
+              "ed25519_verify": tuple(torch.from_numpy(a).to(dev)
+                                      for a in full_arrays)}
     lanes = {k: v[0].shape[-1] for k, v in inputs.items()}
-    log("main-path lanes:", lanes)
-    wrappers = {"ed25519_split": K.ed25519_split, "vrf_verify": K.vrf_verify,
-                "gamma8": K.gamma8, "kes_hash": K.kes_hash}
+    log("lanes (each path's widths):", lanes)
+    wrappers = {name: getattr(K, name) for name in K.KERNELS}
     outputs, max_err = {}, {}
     for name, args in inputs.items():
         got = wrappers[name](*args)
@@ -201,6 +230,16 @@ def main() -> int:
         ok = bool(ed_got[j]) and bool(ed_ok[j])
         if ok != ed25519_ref.verify(r.vk, r.msg, r.sig):
             raise AssertionError(f"ed25519_split lane {j} != ed25519_ref")
+    full_got = outputs["ed25519_verify"]
+    for j in range(32):
+        r = ed_f[j]
+        ok = bool(full_got[j]) and bool(full_parse[j])
+        if ok != ed25519_ref.verify(r.vk, r.msg, r.sig):
+            raise AssertionError(f"ed25519_verify lane {j} != ed25519_ref")
+    if any(full_got[j] and full_parse[j] for j in range(1, 8)) \
+            or not full_parse[5] or not full_got[8]:
+        raise AssertionError("ed25519_verify: a tampered lane passed, or "
+                             "the identity key's forgery failed")
     oks, betas = V._finish(outputs["vrf_verify"], v_ok, v_gok, v_sok, v_pf,
                            32)
     for j in range(32):
@@ -257,7 +296,7 @@ def main() -> int:
         K.vrf_verify(*vrf_args).reshape(-1),
         K.gamma8(*beta_args).reshape(-1),
         K.kes_hash(*kes_args).to(torch.uint8)])
-    ne, nv, nb, nk = (lanes[k] for k in inputs)
+    ne, nv, nb, nk = (lanes[k] for k in MAIN_PATH)
     own = [torch.arange(n, dtype=torch.int32, device=dev) for n in (ne, nv)]
     gam = torch.from_numpy(np.ascontiguousarray(v_pf[:, :32])).to(dev)
     cb = torch.from_numpy(np.ascontiguousarray(v_pf[:, 32:48])).to(dev)
@@ -296,7 +335,7 @@ def main() -> int:
                 raise AssertionError(
                     f"run {run} window {r['window']}: first bad request "
                     f"{r['first_bad_request']}, expected {want}")
-        missing = [k for k, v in res["launches"].items() if v == 0]
+        missing = [k for k in MAIN_PATH if res["launches"][k] == 0]
         if missing:
             raise AssertionError(f"kernels not launched on the main path: "
                                  f"{missing}")
@@ -337,9 +376,24 @@ def main() -> int:
         f"({n_checked} blocks checked), {len(proofs)} betas == vrf_ref "
         f"in each of {RUNS} runs")
 
-    # -- 5. report ------------------------------------------------------------
+    # -- 5. the standalone batch-verify path --------------------------------
+    K.reset_launches()
+    t = time.perf_counter()
+    probe_rows = perf_probe.main(PROBE_ARGS)
+    probe_launches = dict(K.LAUNCHES)
+    log(f"perf_probe {' '.join(PROBE_ARGS)}: {time.perf_counter() - t:.3f} "
+        f"s, launches {probe_launches}")
+    missing = [k for k in PROBE_PATH if probe_launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the probe's path: "
+                             f"{missing}")
+
+    # -- 6. report ------------------------------------------------------------
     for entry in report:
-        entry["launches"] = launches[entry["name"]]
+        main = entry["name"] in MAIN_PATH
+        entry["path"] = "main" if main else "perf_probe --old"
+        entry["launches"] = (launches if main
+                             else probe_launches)[entry["name"]]
     print(json.dumps({"main_path": {
         "fold_ms": fold_ms, "a128_fill_ms": fill_ms,
         "blocks_per_s": [r["blocks_per_s"] for r in runs],
@@ -347,7 +401,9 @@ def main() -> int:
         "seconds": [r["seconds"] for r in runs],
         "cpu_s": [r["cpu_s"] for r in runs],
         "submit_s": [r["submit_s"] for r in res["windows"]],
-        "wait_s": [r["wait_s"] for r in res["windows"]]}}))
+        "wait_s": [r["wait_s"] for r in res["windows"]]},
+        "perf_probe": {name: row["per_s"]
+                       for name, row in probe_rows.items()}}))
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {

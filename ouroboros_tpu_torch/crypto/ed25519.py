@@ -1,17 +1,24 @@
-"""Batched Ed25519 split-128 verification — host prep and plain PyTorch
-versions.
+"""Batched Ed25519 verification — host prep and plain PyTorch versions.
 
 Ported from `ouroboros_tpu/crypto/ed25519_jax.py`.  Host side (numpy +
 hashlib): byte parsing, canonical-y and s < L checks, k = SHA-512(R || A ||
-msg) mod L, packing into (8, N) little-endian uint32 words.  Device side:
-decompress R, the 16-entry split table over {1, B, B', B+B'} x {1, -A,
--A', -A-A'} (B' = [2^128]B constant, A' = [2^128]A from the per-key cache)
-and a 128-step ladder of one doubling plus one cached addition, accept iff
-the result equals R projectively.
+msg) mod L, packing into (8, N) little-endian uint32 words.  Device side,
+two ladders:
+
+- split-128 (the validation window's): decompress R, the 16-entry split
+  table over {1, B, B', B+B'} x {1, -A, -A', -A-A'} (B' = [2^128]B
+  constant, A' = [2^128]A from the per-key cache) and a 128-step ladder of
+  one doubling plus one cached addition;
+- full 256-bit (the standalone batch verify's): decompress A and R, the
+  16-entry joint table [i]B + [j](-A) and 128 steps of two doublings plus
+  one cached addition over 2-bit windows of s and k;
+
+each accepting iff the result equals R projectively.
 
 `verify_full_split_words_core` is the plain version of the `ed25519_split`
-CUDA kernel (../csrc/ed25519_split.cu) and `a128_core` is the per-key
-fill, which stays PyTorch ops as in the JAX package.  Every formula
+CUDA kernel (../csrc/ed25519_split.cu), `verify_full_words_core` that of
+`ed25519_verify` (../csrc/ed25519_verify.cu), and `a128_core` is the
+per-key fill, which stays PyTorch ops as in the JAX package.  Every formula
 mirrors the JAX one field op for field op, so even lanes with off-curve
 garbage give the same bytes.
 
@@ -220,6 +227,85 @@ def verify_full_split_words_core(Aw, xAw, A128xw, A128yw, Rw, signR,
     return (okR & F.is_zero(d1) & F.is_zero(d2)).to(torch.int32)
 
 
+# ---------------------------------------------------------------------------
+# Full 256-bit ladder (pallas_kernels._ed25519_verify_kernel): decompress A
+# and R, Q = [s]B + [k](-A) over 2-bit windows of s and k, MSB first
+# ---------------------------------------------------------------------------
+
+_BASE_SMALLS = tuple(ed.to_affine(ed.scalar_mult(k, ed.BASE))
+                     for k in (1, 2, 3))
+
+
+def joint_table_16(negA):
+    """16 cached-form entries T[4j + i] = [i]B + [j](-A) (ed25519_jax
+    joint_table_16 in cached form): [i]B are affine constants, [j](-A) is
+    -A, its double and double plus itself; the nine entries with both
+    halves non-trivial cost one addition each."""
+    ref = negA[0]
+    A2 = pt_double(negA)
+    var_ext = (None, negA, A2, pt_add(A2, negA))
+    table = []
+    for j in range(4):
+        for i in range(4):
+            if i == 0 and j == 0:
+                table.append(ident_cached(ref))
+            elif j == 0:
+                table.append(const_cached(*_BASE_SMALLS[i - 1], ref))
+            elif i == 0:
+                table.append(to_cached(var_ext[j]))
+            else:
+                table.append(to_cached(pt_add(
+                    var_ext[j], const_point(*_BASE_SMALLS[i - 1], ref))))
+    return table
+
+
+def _bits_msb_first(w):
+    """(8, N) uint32 words -> (256, N) int64 bit rows, row r = bit 255 - r
+    (the layout of ed25519_jax.prepare_bytes_batch's s_bits / k_bits)."""
+    shifts = torch.arange(32, device=w.device)[None, :, None]
+    bits = (w.to(torch.int64)[:, None, :] >> shifts) & 1
+    return bits.reshape(256, -1).flip(0)
+
+
+def full_idx_rows(s_words, k_words):
+    """(8, N) uint32 scalar words -> (128, N) joint window digits: row i =
+    (2·s[255-2i] + s[254-2i]) + 4·(2·k[255-2i] + k[254-2i])."""
+    s, k = _bits_msb_first(s_words), _bits_msb_first(k_words)
+    return (2 * s[0::2] + s[1::2]) + 4 * (2 * k[0::2] + k[1::2])
+
+
+def verify_full_words_core(Aw, signA, Rw, signR, s_words, k_words):
+    """Plain version of the `ed25519_verify` kernel: the whole verify from
+    the packed words `prepare_words_batch` returns ((8, N) uint32 y_A, y_R,
+    s, k with the sign bits cleared; (N,) int32 signs).  Returns (N,)
+    int32 0/1; callers mask the host parse (`parse_ok`)."""
+    yA = F.limbs_from_words(Aw)
+    yR = F.limbs_from_words(Rw)
+    xA, okA = device_decompress(yA, signA.reshape(-1))
+    xR, okR = device_decompress(yR, signR.reshape(-1))
+    nax = F.sub(F.const(0, yA), xA)
+    negA = (nax, yA, F.const(1, yA), F.mul(nax, yA))
+    table = stack_table(joint_table_16(negA))
+    idx = full_idx_rows(s_words, k_words)
+    Q = _identity_like(yA)
+    for i in range(128):
+        Q = pt_add_cached(pt_double(pt_double(Q)), select(table, idx[i]))
+    X, Y, Z, _ = Q
+    d1 = F.sub(F.mul(xR, Z), X)
+    d2 = F.sub(F.mul(yR, Z), Y)
+    return (okA & okR & F.is_zero(d1) & F.is_zero(d2)).to(torch.int32)
+
+
+def batch_verify(vks, msgs, sigs, pad_to: int | None = None,
+                 device=None) -> list[bool]:
+    """End-to-end batched verify through the `ed25519_verify` kernel
+    (ed25519_jax.batch_verify); the same function as
+    `kernels.batch_verify_ed25519`."""
+    from .kernels import batch_verify_ed25519     # kernels imports this
+    return batch_verify_ed25519(vks, msgs, sigs, pad_to=pad_to,
+                                device=device)
+
+
 def a128_core(yA, signA):
     """Per-key precompute: decompress A, then [2^128]A by 128 doublings
     and one inversion to canonical affine.  Returns (xA, x128, y128, ok),
@@ -303,7 +389,9 @@ def _y_canonical(arr: np.ndarray) -> np.ndarray:
 
 
 def prepare_words_batch(vks, msgs, sigs):
-    """Packed-words host prep for verify_full_split_words_core.
+    """Packed-words host prep for verify_full_split_words_core (which
+    takes A's x from the per-key cache instead of signA) and
+    verify_full_words_core.
 
     Returns ((Aw, signA, Rw, signR, sw, kw), parse_ok): the 256-bit
     inputs as (8, N) uint32 word rows (sign bits cleared out of Aw/Rw

@@ -1,19 +1,21 @@
 """The port's CUDA kernels: build, load, wrappers and launch counters.
 
-The four TPU kernels on the validation window's path
-(`ouroboros_tpu/crypto/pallas_kernels.py`) are written by hand for Hopper
-in CUDA C++ under `../csrc/` and compiled with nvcc for sm_90a into one
-shared library with a plain C interface, loaded with ctypes.  The build
-runs at first use, into `ouroboros_tpu_torch/build/` (one nvcc per
-source, all started together, then one link), keyed by a hash of the
-sources and flags.
+The five TPU kernels of `ouroboros_tpu/crypto/pallas_kernels.py` (four on
+the validation window's path, and the full 256-bit Ed25519 verify of the
+standalone batch API) are written by hand for Hopper in CUDA C++ under
+`../csrc/` and compiled with nvcc for sm_90a into one shared library with
+a plain C interface, loaded with ctypes.  The build runs at first use,
+into `ouroboros_tpu_torch/build/` (one nvcc per source, all started
+together, then one link), keyed by a hash of the sources and flags.
 
-Each wrapper takes the packed-words layout the JAX call takes and returns
-the JAX output layout.  On a CPU tensor it runs the kernel's plain
-PyTorch version (named in `KERNELS`); on a CUDA tensor it launches the
-kernel on the current stream, adds one to `LAUNCHES[name]`, and raises on
-anything the kernel does not take or on a launch error.  There is no
-fallback between the two.
+Each wrapper takes packed (8, N) uint32 words: the JAX call's layout for
+the four window kernels, and for `ed25519_verify` the words of
+`ed25519.prepare_words_batch` in place of the JAX call's radix-2^13 limbs
+and bit rows.  It returns the JAX output layout.  On a CPU tensor it runs
+the kernel's plain PyTorch version (named in `KERNELS`); on a CUDA tensor
+it launches the kernel on the current stream, adds one to
+`LAUNCHES[name]`, and raises on anything the kernel does not take or on a
+launch error.  There is no fallback between the two.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from typing import Callable
 
 import torch
 
+from .. import device as device_mod
 from . import blake2b as B2
 from . import ed25519 as E
 from . import vrf as V
@@ -65,6 +68,10 @@ KERNELS = {k.name: k for k in (
            "ouroboros_tpu_torch/csrc/kes_hash.cu",
            "ouroboros_tpu/crypto/pallas_kernels.py:454",
            B2.check_block64),
+    Kernel("ed25519_verify", "ouro_ed25519_verify",
+           "ouroboros_tpu_torch/csrc/ed25519_verify.cu",
+           "ouroboros_tpu/crypto/pallas_kernels.py:105",
+           E.verify_full_words_core),
 )}
 
 # launches per kernel since the last reset_launches(); counted only where a
@@ -149,7 +156,8 @@ def library() -> ctypes.CDLL:
             lib = ctypes.CDLL(build())
             p, i = ctypes.c_void_p, ctypes.c_int
             argc = {"ouro_ed25519_split": 9, "ouro_vrf_verify": 8,
-                    "ouro_gamma8": 3, "ouro_kes_hash": 3}
+                    "ouro_gamma8": 3, "ouro_kes_hash": 3,
+                    "ouro_ed25519_verify": 7}
             for sym, n_ptr in argc.items():
                 fn = getattr(lib, sym)
                 fn.argtypes = [p] * n_ptr + [i, p]
@@ -237,3 +245,41 @@ def kes_hash(mw, ew):
     _check("ew", ew, torch.uint32, (8, n), dev)
     out = torch.empty(n, dtype=torch.int32, device=dev)
     return _launch("kes_hash", (mw, ew), out, n)
+
+
+def ed25519_verify(Aw, signA, Rw, signR, sw, kw):
+    """Full 256-bit Ed25519 verify (ed25519_verify_pallas): (8, N) uint32
+    words of y_A, y_R, s and k + (N,) int32 signs of A and R -> (N,) int32
+    0/1.  Lanes the host parse rejected must be masked by the caller."""
+    if Aw.device.type == "cpu":
+        return E.verify_full_words_core(Aw, signA, Rw, signR, sw, kw)
+    n, dev = Aw.shape[1], Aw.device
+    for name, t in (("Aw", Aw), ("Rw", Rw), ("sw", sw), ("kw", kw)):
+        _check(name, t, torch.uint32, (8, n), dev)
+    for name, t in (("signA", signA), ("signR", signR)):
+        _check(name, t, torch.int32, (n,), dev)
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    return _launch("ed25519_verify", (Aw, signA, Rw, signR, sw, kw), out, n)
+
+
+# -- standalone batch API -----------------------------------------------------
+
+def batch_verify_ed25519(vks, msgs, sigs, device=None,
+                         pad_to: int | None = None) -> list[bool]:
+    """End-to-end batched Ed25519 verify through `ed25519_verify`
+    (pallas_kernels.batch_verify_ed25519, ed25519_jax.batch_verify): host
+    prep, one launch, verdicts folded with the host parse.  The kernel
+    takes any lane count, so the batch is padded only up to `pad_to`.
+    `device`: None for the card (raises without one) or "cpu" for the
+    plain version."""
+    dev = device_mod.resolve(device)
+    n = len(vks)
+    if n == 0:
+        return []
+    m = pad_to if pad_to and pad_to >= n else n
+    vks = list(vks) + [b"\x00" * 32] * (m - n)
+    msgs = list(msgs) + [b""] * (m - n)
+    sigs = list(sigs) + [b"\x00" * 64] * (m - n)
+    arrays, parse_ok = E.prepare_words_batch(vks, msgs, sigs)
+    ok = ed25519_verify(*device_mod.stage(arrays, dev)).cpu().numpy()
+    return [bool(o) and bool(p) for o, p in zip(ok[:n], parse_ok[:n])]

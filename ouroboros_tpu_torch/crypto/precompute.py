@@ -15,7 +15,9 @@ their per-key precomputation is pure:
 Entries are the port's "weights": `import_entries` loads them in the
 shape of the JAX cache's `_c` / `_kes` entries.  `device_fills`, a plain
 int, counts the batched fills and stays flat across a warm window.  Undecodable keys are
-cached as negative entries.
+cached as negative entries.  `shared_cache(device)` is the process-wide
+instance the standalone batch APIs use (the JAX package's
+GLOBAL_PRECOMPUTE_CACHE); a `TorchBackend` keeps its own.
 """
 from __future__ import annotations
 
@@ -155,3 +157,16 @@ class PrecomputeCache:
             od.move_to_end(key)
             while len(od) > self.max_entries:
                 od.popitem(last=False)
+
+
+_SHARED: dict = {}
+_SHARED_LOCK = threading.Lock()
+
+
+def shared_cache(device) -> PrecomputeCache:
+    """The process-wide cache of `device`, made at first use."""
+    dev = torch.device(device)
+    with _SHARED_LOCK:
+        if dev not in _SHARED:
+            _SHARED[dev] = PrecomputeCache(dev)
+        return _SHARED[dev]

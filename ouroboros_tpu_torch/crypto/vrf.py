@@ -13,7 +13,8 @@ Shelley/Protocol.hs:366-415, libsodium crypto_vrf_ietfdraft03):
       compression to bytes, then (fold) the SHA-512 challenge check.
 
 `vrf_verify_words_core` is the plain version of the `vrf_verify` CUDA
-kernel and `gamma8_words_core` of `gamma8` (../csrc/); every formula
+kernel and `gamma8_words_core` of `gamma8` (../csrc/), which the
+standalone `batch_verify_vrf` and `batch_betas` launch; every formula
 mirrors the JAX one field op for field op, so lanes with off-curve
 garbage give the same bytes.  `challenge_ok_device` stays PyTorch ops, as
 it stays jnp in the JAX package.
@@ -27,9 +28,11 @@ import hashlib
 import numpy as np
 import torch
 
+from .. import device as device_mod
 from . import ed25519 as E
 from . import edwards as ed
 from . import field as F
+from .precompute import shared_cache
 from .vrf_ref import PROOF_LEN, SUITE
 
 _GX, _GY = ed.to_affine(ed.BASE)
@@ -293,3 +296,49 @@ def _finish_betas(rows: np.ndarray, decode_ok, n: int) -> list:
     return [hashlib.sha512(SUITE + b"\x03" + rows[j, :32].tobytes()).digest()
             if ok[j] else None
             for j in range(n)]
+
+
+# ---------------------------------------------------------------------------
+# Standalone batch API (vrf_jax.batch_verify_vrf / batch_betas)
+# ---------------------------------------------------------------------------
+
+def batch_verify_vrf(vks, alphas, proofs, pad_to: int | None = None,
+                     device=None) -> tuple[list, list]:
+    """Batched VRF verify through the `vrf_verify` kernel; returns (ok
+    list[bool], beta list[bytes | None]), beta[j] whenever proof j decodes
+    (vrf_ref.proof_to_hash's totality).  Y's affine x comes from the
+    device's shared per-key cache; keys it cannot decompress fail.
+    `device`: None for the card (raises without one) or "cpu"."""
+    from . import kernels as K                  # kernels imports this module
+    dev = device_mod.resolve(device)
+    n = len(vks)
+    if n == 0:
+        return [], []
+    m = pad_to if pad_to and pad_to >= n else n
+    vks = list(vks) + [b"\x00" * 32] * (m - n)
+    alphas = list(alphas) + [b""] * (m - n)
+    proofs = list(proofs) + [b"\x00" * PROOF_LEN] * (m - n)
+    args, parse_ok, gamma_ok, s_ok, pf_arr = _prepare_words(vks, alphas,
+                                                            proofs)
+    Yw, _signY, Gw, signG, rw, cw, sw = args
+    xa, _x128, _y128, known = shared_cache(dev).assemble(vks)
+    rows = K.vrf_verify(*device_mod.stage((Yw, xa, Gw, signG, rw, cw, sw),
+                                          dev))
+    return _finish(rows.cpu().numpy(), parse_ok & known, gamma_ok, s_ok,
+                   pf_arr, n)
+
+
+def batch_betas(proofs, pad_to: int | None = None, device=None) -> list:
+    """Batched proof_to_hash through the `gamma8` kernel: beta bytes per
+    proof, None where the proof does not decode.  `device` as in
+    `batch_verify_vrf`."""
+    from . import kernels as K
+    dev = device_mod.resolve(device)
+    n = len(proofs)
+    if n == 0:
+        return []
+    m = pad_to if pad_to and pad_to >= n else n
+    proofs = list(proofs) + [b"\x00" * PROOF_LEN] * (m - n)
+    (Gw, signG), decode_ok = _prepare_betas_words(proofs)
+    rows = K.gamma8(*device_mod.stage((Gw, signG), dev))
+    return _finish_betas(rows.cpu().numpy(), decode_ok, n)

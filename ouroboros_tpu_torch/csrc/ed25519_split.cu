@@ -49,26 +49,10 @@ ed25519_split_kernel(const uint32_t *__restrict__ Aw,
     var[1] = ge{nax, yA, one, fe_mul(nax, yA)};
     var[2] = ge{nax128, yA128, one, fe_mul(nax128, yA128)};
     var[3] = ge_add(var[1], var[2]);
-    const int32_t *cx[4] = {nullptr, K_S1_X, K_S2_X, K_S3_X};
-    const int32_t *cy[4] = {nullptr, K_S1_Y, K_S2_Y, K_S3_Y};
-    const int32_t *cxy[4] = {nullptr, K_S1_XY, K_S2_XY, K_S3_XY};
-    const int32_t *cymx[4] = {nullptr, K_S1_YMX, K_S2_YMX, K_S3_YMX};
-    const int32_t *cypx[4] = {nullptr, K_S1_YPX, K_S2_YPX, K_S3_YPX};
-    const int32_t *ct2d[4] = {nullptr, K_S1_T2D, K_S2_T2D, K_S3_T2D};
+    const ge_const_pt cst[4] = {{}, GE_CONST_PT(K_S1), GE_CONST_PT(K_S2),
+                                GE_CONST_PT(K_S3)};
     gc table[16];
-    for (int v = 0; v < 4; v++) {
-        for (int c = 0; c < 4; c++) {
-            if (v == 0 && c == 0)
-                table[0] = gc_identity();
-            else if (v == 0)
-                table[c] = gc_const(cymx[c], cypx[c], ct2d[c]);
-            else if (c == 0)
-                table[4 * v] = ge_cached(var[v]);
-            else
-                table[c + 4 * v] = ge_cached(
-                    ge_add(var[v], ge_const(cx[c], cy[c], cxy[c])));
-        }
-    }
+    gc_table16(table, var, cst);
     ge Q = ge_identity();
     for (int i = 0; i < 128; i++) {
         const int d = word_bit(sw, n, j, 127 - i) +

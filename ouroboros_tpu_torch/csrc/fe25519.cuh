@@ -1,5 +1,6 @@
 // GF(2^255-19) for one lane per thread — the field core of the port's
-// CUDA kernels (ed25519_split.cu, vrf_verify.cu, gamma8.cu).
+// CUDA kernels (ed25519_split.cu, ed25519_verify.cu, vrf_verify.cu,
+// gamma8.cu).
 //
 // Same representation and carry schedule as the plain PyTorch version
 // (ouroboros_tpu_torch/crypto/field.py), so kernel and plain version agree
@@ -70,6 +71,31 @@ FE_CONST(K_S3_YPX, -4430008, 648057, 31384611, -16349808, -6520842, 8106393,
          14624995, -5652822, -28506812, 10126554);
 FE_CONST(K_S3_T2D, 22472240, 9473251, 20136607, 3545737, 6583525, -5394043,
          -22300972, -4701040, -29716529, -13074752);
+// the full ladder's constant half [2]B, [3]B ([1]B is K_S1), same six forms
+FE_CONST(K_B2_X, 4443662, -9940086, 9171065, 2666173, 2111033, 3401644,
+         -31605108, 9275297, 13235616, 14331105);
+FE_CONST(K_B2_Y, -17259575, -3036261, -30752308, 9118147, -27466691,
+         -6152361, 19887205, -13089868, -13594061, 9012024);
+FE_CONST(K_B2_XY, 23704577, 9426267, 8410851, 5115833, 24503987, -16534509,
+         -22051782, -14974019, 5288695, 9593502);
+FE_CONST(K_B2_YMX, -21703237, 6903825, 27185491, 6451973, -29577724,
+         -9554005, -15616551, 11189268, -26829678, -5319081);
+FE_CONST(K_B2_YPX, -12815894, -12976347, -21581243, 11784320, -25355658,
+         -2750717, -11717903, -3814571, -358445, -10211303);
+FE_CONST(K_B2_T2D, 26966642, 11152617, 32442495, 15396054, 14353839,
+         -12752335, -3128826, -9541118, -15472047, -4166697);
+FE_CONST(K_B3_X, -466321, 9574389, 17880460, 13372178, 26021472, 14338106,
+         -27837921, -1498113, 10627369, -6374799);
+FE_CONST(K_B3_Y, 16102612, 14291486, 6324312, 12269856, -25404496, 2531064,
+         -11483344, -13274075, 18317031, 4824775);
+FE_CONST(K_B3_XY, 11772954, 4341406, -7775809, 6281400, 24157398, -4647641,
+         -6569513, 10624382, 30088665, 11088905);
+FE_CONST(K_B3_YMX, 16568933, 4717097, -11556148, -1102322, 15682896,
+         -11807043, 16354577, -11775962, 7689662, 11199574);
+FE_CONST(K_B3_YPX, 15636291, -9688557, 24204773, -7912398, 616977,
+         -16685262, 27787600, -14772189, 28944400, -1550024);
+FE_CONST(K_B3_T2D, 30464156, -5976125, -11779434, -15670865, 23220365,
+         15915852, 7512774, 10017326, -17749093, -9920357);
 // Elligator2: Montgomery A and the y of the 1 + 2r^2 == 0 edge case
 FE_CONST(K_ELL_A, 486662, 0, 0, 0, 0, 0, 0, 0, 0, 0);
 FE_CONST(K_YW0, -21827646, -4521558, -11878545, 8449817, -22362405, 5967128,

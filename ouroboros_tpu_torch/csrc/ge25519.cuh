@@ -35,6 +35,15 @@ __device__ __forceinline__ gc gc_const(const int32_t *ymx, const int32_t *ypx,
     return gc{fe_load(ymx), fe_load(ypx), fe_small(2), fe_load(t2d)};
 }
 
+// an affine constant point in both forms a table needs: x, y, xy and the
+// cached (y-x, y+x, 2dxy); GE_CONST_PT(K_S1) names the K_S1_* constants
+struct ge_const_pt {
+    const int32_t *x, *y, *xy, *ymx, *ypx, *t2d;
+};
+#define GE_CONST_PT(stem)                                                   \
+    ge_const_pt { stem##_X, stem##_Y, stem##_XY, stem##_YMX, stem##_YPX,    \
+                  stem##_T2D }
+
 // ed25519.pt_add
 __device__ __forceinline__ ge ge_add(const ge &p, const ge &q) {
     const fe A = fe_mul(fe_sub(p.Y, p.X), fe_sub(q.Y, q.X));
@@ -70,6 +79,27 @@ __device__ __forceinline__ ge ge_dbl3(const ge &p) {
 __device__ __forceinline__ gc ge_cached(const ge &q) {
     return gc{fe_sub(q.Y, q.X), fe_add(q.Y, q.X), fe_add(q.Z, q.Z),
               fe_mul(q.T, fe_load(K_D2))};
+}
+
+// the 16-entry cached table T[c + 4v] = C[c] + V[v] of both Ed25519
+// ladders (ed25519.split_table_16 / joint_table_16): C the constant half
+// (cst[1..3]; C[0] the identity), V the variable half (var[1..3], extended;
+// V[0] the identity)
+__device__ __forceinline__ void gc_table16(gc table[16], const ge var[4],
+                                           const ge_const_pt cst[4]) {
+    for (int v = 0; v < 4; v++) {
+        for (int c = 0; c < 4; c++) {
+            if (v == 0 && c == 0)
+                table[0] = gc_identity();
+            else if (v == 0)
+                table[c] = gc_const(cst[c].ymx, cst[c].ypx, cst[c].t2d);
+            else if (c == 0)
+                table[4 * v] = ge_cached(var[v]);
+            else
+                table[c + 4 * v] = ge_cached(
+                    ge_add(var[v], ge_const(cst[c].x, cst[c].y, cst[c].xy)));
+        }
+    }
 }
 
 // ed25519.pt_add_cached: p (extended) + q (cached), 8 field muls

@@ -34,3 +34,8 @@ def device_kind(device=None) -> str:
     if dev.type == "cuda":
         return torch.cuda.get_device_name(dev)
     return "cpu"
+
+
+def stage(arrays, device: torch.device) -> list:
+    """Host numpy arrays -> tensors on `device`, in order."""
+    return [torch.from_numpy(a).to(device) for a in arrays]

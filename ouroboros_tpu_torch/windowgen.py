@@ -13,7 +13,8 @@ window is KES-cold and later ones are KES-warm, with fresh witness keys
 in every window.  Everything is pure Python (the port's CPU references),
 deterministic in the seed, and can be spread over a process pool: a
 worker makes every block of one pool.  Importing this module imports no
-torch, so workers start quickly.
+torch, so workers start quickly.  `signatures` and `proofs` make the
+standalone batch APIs' data (one key, many inputs) the same way.
 """
 from __future__ import annotations
 
@@ -78,6 +79,16 @@ def _pool_job(args):
     return pool_blocks(*args)
 
 
+def _map(fn, jobs: list, workers: int) -> list:
+    """[fn(job) for job in jobs], over `workers` spawned processes when
+    there is more than one."""
+    if workers > 1 and len(jobs) > 1:
+        ctx = multiprocessing.get_context("spawn")
+        with ctx.Pool(min(workers, len(jobs))) as pool:
+            return pool.map(fn, jobs, chunksize=1)
+    return [fn(j) for j in jobs]
+
+
 def make_windows(seed: int, n_windows: int, window: int, pools: int,
                  workers: int = 1) -> list:
     """n_windows lists of `window` blocks, each block its request list;
@@ -85,12 +96,7 @@ def make_windows(seed: int, n_windows: int, window: int, pools: int,
     total = n_windows * window
     jobs = [(seed, p, list(range(p, total, pools)))
             for p in range(min(pools, total))]
-    if workers > 1:
-        ctx = multiprocessing.get_context("spawn")
-        with ctx.Pool(workers) as pool:
-            parts = pool.map(_pool_job, jobs, chunksize=1)
-    else:
-        parts = [_pool_job(j) for j in jobs]
+    parts = _map(_pool_job, jobs, workers)
     blocks: list = [None] * total
     for part in parts:
         for g, reqs in part:
@@ -123,3 +129,37 @@ def tamper_kes_node(block: list) -> list:
     sig = r.sig_bytes[:-1] + bytes([r.sig_bytes[-1] ^ 1])
     return _replace(block, KES_SIG,
                     KesReq(r.depth, r.vk, r.period, r.msg, sig))
+
+
+# -- one key, many inputs (the standalone batch APIs' probe data) ------------
+
+def _sign_job(args):
+    sk, msgs = args
+    return [ed25519_ref.sign(sk, m) for m in msgs]
+
+
+def _prove_job(args):
+    sk, alphas = args
+    return [vrf_ref.prove(sk, a) for a in alphas]
+
+
+# items per worker job at least, so that a small batch (the CPU tests')
+# signs in this process instead of paying for spawned workers' start-up
+_MIN_CHUNK = 128
+
+
+def _chunked(fn, sk: bytes, items: list, workers: int) -> list:
+    step = max(_MIN_CHUNK, -(-len(items) // max(workers, 1)))
+    parts = _map(fn, [(sk, items[i:i + step])
+                      for i in range(0, len(items), step)], workers)
+    return [x for part in parts for x in part]
+
+
+def signatures(sk: bytes, msgs: list, workers: int = 1) -> list:
+    """Ed25519 signatures of every message by one key."""
+    return _chunked(_sign_job, sk, msgs, workers)
+
+
+def proofs(sk: bytes, alphas: list, workers: int = 1) -> list:
+    """ECVRF proofs of every input by one key."""
+    return _chunked(_prove_job, sk, alphas, workers)

@@ -58,6 +58,10 @@ def test_kernel_equals_plain_version_on_random_lanes(dev, name):
                                                                  False),
                                                           _words(rng, 8, dev,
                                                                  False)]
+    elif name == "ed25519_verify":
+        args = [_words(rng, 8, dev), _sign(rng, dev), _words(rng, 8, dev),
+                _sign(rng, dev), _words(rng, 8, dev, False),
+                _words(rng, 8, dev, False)]
     elif name == "gamma8":
         args = [_words(rng, 8, dev), _sign(rng, dev)]
     else:

@@ -121,10 +121,13 @@ def test_cuda_header_constants_match_the_curve():
     pts = [jed.to_affine(jed.BASE),
            jed.to_affine(jed.scalar_mult(1 << 128, jed.BASE)),
            jed.to_affine(jed.scalar_mult((1 << 128) + 1, jed.BASE))]
-    for c, (x, y) in enumerate(pts, 1):
-        want.update({f"K_S{c}_X": x, f"K_S{c}_Y": y, f"K_S{c}_XY": x * y % P,
-                     f"K_S{c}_YMX": (y - x) % P, f"K_S{c}_YPX": (y + x) % P,
-                     f"K_S{c}_T2D": 2 * D * x * y % P})
+    smalls = [jed.to_affine(jed.scalar_mult(k, jed.BASE)) for k in (2, 3)]
+    named = [(f"K_S{c}", pt) for c, pt in enumerate(pts, 1)] + \
+        [(f"K_B{k}", pt) for k, pt in zip((2, 3), smalls)]
+    for stem, (x, y) in named:
+        want.update({f"{stem}_X": x, f"{stem}_Y": y, f"{stem}_XY": x * y % P,
+                     f"{stem}_YMX": (y - x) % P, f"{stem}_YPX": (y + x) % P,
+                     f"{stem}_T2D": 2 * D * x * y % P})
     assert set(table) == set(want)
     for name, value in want.items():
         assert table[name] == F.balanced_limbs(value), name

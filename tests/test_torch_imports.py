@@ -32,7 +32,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 17          # every module of the slice imported
+    assert n_modules >= 19          # every module of both slices imported
 
 
 def _require_no_card():
@@ -62,3 +62,19 @@ def test_backend_and_validate_raise_without_a_card():
         validate.main(["--windows", "1", "--window", "1", "--pools", "1",
                        "--workers", "1"])
     assert TorchBackend(device="cpu").device_kind == "cpu"
+
+
+def test_standalone_apis_and_probe_raise_without_a_card():
+    _require_no_card()
+    from ouroboros_tpu_torch import perf_probe
+    from ouroboros_tpu_torch.crypto import ed25519, kernels, vrf
+    with pytest.raises(RuntimeError):
+        kernels.batch_verify_ed25519([b"\x00" * 32], [b""], [b"\x00" * 64])
+    with pytest.raises(RuntimeError):
+        ed25519.batch_verify([], [], [])
+    with pytest.raises(RuntimeError):
+        vrf.batch_verify_vrf([], [], [])
+    with pytest.raises(RuntimeError):
+        vrf.batch_betas([])
+    with pytest.raises(RuntimeError):
+        perf_probe.main(["--n-ed", "1", "--n-vrf", "1", "--reps", "1"])

@@ -1,5 +1,6 @@
-"""Plain PyTorch versions of the four ported kernels against the JAX
-package, on the same 16 lanes made from a seed with numpy.
+"""Plain PyTorch versions of the four window kernels against the JAX
+package, on the same 16 lanes made from a seed with numpy (the fifth,
+ed25519_verify, is held to the JAX package in test_torch_full_verify.py).
 
 - kes_hash:      blake2b.check_block64   vs blake2b_jax.check_block64_jit
 - gamma8:        vrf.gamma8_words_core   vs vrf_jax.gamma8_words_kernel
@@ -256,6 +257,11 @@ def test_wrappers_run_the_plain_version_on_cpu_tensors(ed_lanes, vrf_lanes,
     ew = _t(RNG.integers(0, 2**32, (8, 4), dtype=np.uint64)
             .astype(np.uint32))
     assert torch.equal(K.kes_hash(mw, ew), B2.check_block64(mw, ew))
+    Aw, _xa, _xw, _yw, Rw, signR, sw, kw = args
+    signA = _t(RNG.integers(0, 2, N).astype(np.int32))
+    assert torch.equal(K.ed25519_verify(Aw, signA, Rw, signR, sw, kw),
+                       E.verify_full_words_core(Aw, signA, Rw, signR, sw,
+                                                kw))
     assert K.LAUNCHES == {name: 0 for name in K.KERNELS}
 
 
@@ -281,10 +287,11 @@ def test_wrapper_argument_checks_raise(bad):
 
 def test_kernel_table_names_each_tpu_kernel():
     assert set(K.KERNELS) == {"ed25519_split", "vrf_verify", "gamma8",
-                              "kes_hash"}
+                              "kes_hash", "ed25519_verify"}
     lines = {"ed25519_split": "_ed25519_split_kernel",
              "vrf_verify": "_vrf_verify_kernel",
-             "gamma8": "_gamma8_kernel", "kes_hash": "_kes_hash_kernel"}
+             "gamma8": "_gamma8_kernel", "kes_hash": "_kes_hash_kernel",
+             "ed25519_verify": "_ed25519_verify_kernel"}
     import os
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     for name, k in K.KERNELS.items():
