@@ -11,8 +11,10 @@ the CUDA toolkit.  Phases:
 2. each kernel against its plain PyTorch version on the card, at the
    main path's lane counts (Ed25519 4096, VRF 2048, betas 2048, KES jobs
    8192; the full Ed25519 verify on the same 4096 requests with A-side
-   tampers added) with tampered lanes, compared exactly, and a sample of
-   lanes against the CPU references (ed25519_ref, vrf_ref, hashlib);
+   tampers added) with tampered lanes, compared exactly; ed25519_split
+   and vrf_verify (several threads a lane) again on the first n - 3 of
+   those lanes; and a sample of lanes against the CPU references
+   (ed25519_ref, vrf_ref, hashlib);
 3. kernel times (CUDA events, median of 7 after a warm-up), the plain
    versions' times, the verdict fold's and the per-key fill's times, and
    each kernel's bound: per-lane 32-bit integer multiply-adds counted
@@ -34,7 +36,8 @@ the CUDA toolkit.  Phases:
    the three kernels the probe drives must launch;
 6. a `main_path` JSON line, a `kernels` JSON line (each kernel's
    launches are those of its path: the main path's, or the probe's for
-   ed25519_verify), the card line, and as the last line
+   ed25519_verify; its launch shape as threads_per_lane and block), the
+   card line, and as the last line
    {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero before the last line.  Without a
@@ -72,6 +75,8 @@ KES_INT_OPS = 12 * 8 * (6 + 4 + 3) * 2 + 4 * 2 * 2 + 8
 MAIN_PATH = ("ed25519_split", "vrf_verify", "gamma8", "kes_hash")
 PROBE_PATH = ("ed25519_split", "ed25519_verify", "vrf_verify", "gamma8")
 PROBE_ARGS = ["--reps", "5", "--n-ed", "4096", "--n-vrf", "2048", "--old"]
+# the kernels of several threads a lane, checked at a ragged lane count too
+RAGGED = ("ed25519_split", "vrf_verify")
 
 
 def log(*a):
@@ -223,6 +228,22 @@ def main() -> int:
         outputs[name] = got.cpu().numpy()
         log(f"{name}: kernel == plain version on {lanes[name]} lanes "
             f"(integer outputs, compared exactly: tolerance 0)")
+    # the multi-thread kernels at a lane count no block size divides: the
+    # first n - 3 lanes of the same inputs, tampered lanes included
+    for name in RAGGED:
+        n = lanes[name] - 3
+        args = [a[..., :n].contiguous() for a in inputs[name]]
+        got = wrappers[name](*args)
+        want = K.KERNELS[name].plain(*args)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        max_err[name] = max(max_err[name], err)
+        if tuple(got.shape) != tuple(want.shape) or err != 0 or \
+                not np.array_equal(got.cpu().numpy(), outputs[name][:n]):
+            raise AssertionError(f"{name}: kernel != plain version on the "
+                                 f"first {n} lanes (max abs err {err})")
+        log(f"{name}: kernel == plain version on the first {n} lanes "
+            f"(tolerance 0)")
     # a sample of lanes against the CPU references
     ed_got = outputs["ed25519_split"]
     for j in list(range(32)):
@@ -283,7 +304,9 @@ def main() -> int:
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         report.append({
             "name": name, "route": "cuda", "source": K.KERNELS[name].source,
-            "replaces": K.KERNELS[name].replaces, "launches": 0,
+            "replaces": K.KERNELS[name].replaces,
+            "threads_per_lane": K.KERNELS[name].threads_per_lane,
+            "block": K.KERNELS[name].block, "launches": 0,
             "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",

@@ -11,11 +11,15 @@ together, then one link), keyed by a hash of the sources and flags.
 Each wrapper takes packed (8, N) uint32 words: the JAX call's layout for
 the four window kernels, and for `ed25519_verify` the words of
 `ed25519.prepare_words_batch` in place of the JAX call's radix-2^13 limbs
-and bit rows.  It returns the JAX output layout.  On a CPU tensor it runs
-the kernel's plain PyTorch version (named in `KERNELS`); on a CUDA tensor
-it launches the kernel on the current stream, adds one to
-`LAUNCHES[name]`, and raises on anything the kernel does not take or on a
-launch error.  There is no fallback between the two.
+and bit rows.  It returns the JAX output layout.  `ed25519_split` runs
+four threads a lane and `vrf_verify` eight (`csrc/ge25519_x4.cuh`: one
+thread a point coordinate); the other three run one thread a lane.
+
+On a CPU tensor a wrapper runs the kernel's plain PyTorch version (named
+in `KERNELS`); on a CUDA tensor it launches the kernel on the current
+stream, adds one to `LAUNCHES[name]`, and raises on anything the kernel
+does not take or on a launch error.  There is no fallback between the
+two.
 """
 from __future__ import annotations
 
@@ -49,29 +53,31 @@ class Kernel:
     source: str          # path in the repository
     replaces: str        # file:line of the TPU kernel
     plain: Callable      # the plain PyTorch version (CPU tensors, tests)
+    threads_per_lane: int  # the launch shape the source's launcher uses
+    block: int             # (the CPU tests hold these against csrc/)
 
 
 KERNELS = {k.name: k for k in (
     Kernel("ed25519_split", "ouro_ed25519_split",
            "ouroboros_tpu_torch/csrc/ed25519_split.cu",
            "ouroboros_tpu/crypto/pallas_kernels.py:182",
-           E.verify_full_split_words_core),
+           E.verify_full_split_words_core, 4, 64),
     Kernel("vrf_verify", "ouro_vrf_verify",
            "ouroboros_tpu_torch/csrc/vrf_verify.cu",
            "ouroboros_tpu/crypto/pallas_kernels.py:318",
-           V.vrf_verify_words_core),
+           V.vrf_verify_words_core, 8, 64),
     Kernel("gamma8", "ouro_gamma8",
            "ouroboros_tpu_torch/csrc/gamma8.cu",
            "ouroboros_tpu/crypto/pallas_kernels.py:407",
-           V.gamma8_words_core),
+           V.gamma8_words_core, 1, 32),
     Kernel("kes_hash", "ouro_kes_hash",
            "ouroboros_tpu_torch/csrc/kes_hash.cu",
            "ouroboros_tpu/crypto/pallas_kernels.py:454",
-           B2.check_block64),
+           B2.check_block64, 1, 32),
     Kernel("ed25519_verify", "ouro_ed25519_verify",
            "ouroboros_tpu_torch/csrc/ed25519_verify.cu",
            "ouroboros_tpu/crypto/pallas_kernels.py:105",
-           E.verify_full_words_core),
+           E.verify_full_words_core, 1, 32),
 )}
 
 # launches per kernel since the last reset_launches(); counted only where a

@@ -1,4 +1,4 @@
-// Ed25519 split-128 verify, one lane per thread.
+// Ed25519 split-128 verify, four threads a lane.
 //
 // Replaces the TPU kernel _ed25519_split_kernel
 // (ouroboros_tpu/crypto/pallas_kernels.py:182).  Plain version:
@@ -11,19 +11,26 @@
 // decoded and X - x_R Z = Y - y_R Z = 0.
 //
 // Bound on this card: operations.  A lane reads 232 bytes and writes 4,
-// but does ~2.3k field products of 100 32x32->64 multiply-adds each.
-// Design: the packed-words inputs arrive as the JAX call takes them
-// ((8, N) uint32, lane last), so a warp's loads of one word row are
-// coalesced, and the word -> limb unpack and the digit extraction run in
-// the kernel.  The table (16 x 40 int32) lives in local memory, which L1
-// serves; the lookup is a plain indexed load (verification handles public
-// data).  Shared-memory tables, several threads per lane and a wider
-// radix with carry chains are later work.
+// but does ~2.4k field products of 100 32x32->64 multiply-adds each; the
+// bound at 4096 lanes is ~0.05 ms.
+// Design: a lane's four threads hold one coordinate each of the ladder's
+// point (ge25519_x4.cuh), so each doubling and each cached addition is two
+// rounds of four products side by side: the ladder's 1024 products a lane
+// become 512 rounds, and 4096 lanes make ~4 warps an SM, one for each of
+// the SM's four schedulers (one thread a lane left one warp an SM, three
+// schedulers idle and the product chain's latency exposed).  The table is
+// built four-way too, and each thread keeps only its column of it (16 x 10
+// int32) in shared memory, where the old design's per-thread table sat in
+// local memory.  R's decompression (~265 products) stays serial, run by all
+// four threads alike.  Inputs arrive as the JAX call takes them ((8, N)
+// uint32 words, lane last); the unpack and the digits run in the kernel.
 #include <cuda_runtime.h>
 
-#include "ge25519.cuh"
+#include "ge25519_x4.cuh"
 
-__global__ void __launch_bounds__(OURO_BLOCK)
+#define SPLIT_THREADS_PER_LANE 4
+
+__global__ void __launch_bounds__(X4_BLOCK)
 ed25519_split_kernel(const uint32_t *__restrict__ Aw,
                      const uint32_t *__restrict__ xAw,
                      const uint32_t *__restrict__ A128xw,
@@ -33,8 +40,12 @@ ed25519_split_kernel(const uint32_t *__restrict__ Aw,
                      const uint32_t *__restrict__ sw,
                      const uint32_t *__restrict__ kw,
                      int32_t *__restrict__ out, int n) {
-    const int j = blockIdx.x * blockDim.x + threadIdx.x;
-    if (j >= n) return;
+    __shared__ int32_t tab[16 * 10 * X4_BLOCK];
+    const int lane = blockIdx.x * (X4_BLOCK / SPLIT_THREADS_PER_LANE) +
+                     threadIdx.x / SPLIT_THREADS_PER_LANE;
+    const int t = threadIdx.x % SPLIT_THREADS_PER_LANE;
+    // lanes past the end run the last lane's inputs and store nothing
+    const int j = lane < n ? lane : n - 1;
     const fe yA = fe_from_words(Aw, n, j);
     const fe xA = fe_from_words(xAw, n, j);
     const fe yR = fe_from_words(Rw, n, j);
@@ -45,25 +56,30 @@ ed25519_split_kernel(const uint32_t *__restrict__ Aw,
     const fe one = fe_small(1);
     const fe nax = fe_sub(fe_small(0), xA);
     const fe nax128 = fe_sub(fe_small(0), xA128);
-    ge var[4];
-    var[1] = ge{nax, yA, one, fe_mul(nax, yA)};
-    var[2] = ge{nax128, yA128, one, fe_mul(nax128, yA128)};
-    var[3] = ge_add(var[1], var[2]);
+    fe var[4];  // var[0], the identity, is never read
+    var[1] = fe_pick4(t, nax, yA, one, fe_mul(nax, yA));
+    var[2] = fe_pick4(t, nax128, yA128, one, fe_mul(nax128, yA128));
+    var[3] = ge_add_x4(t, var[1], var[2]);
     const ge_const_pt cst[4] = {{}, GE_CONST_PT(K_S1), GE_CONST_PT(K_S2),
                                 GE_CONST_PT(K_S3)};
-    gc table[16];
-    gc_table16(table, var, cst);
-    ge Q = ge_identity();
-    for (int i = 0; i < 128; i++) {
-        const int d = word_bit(sw, n, j, 127 - i) +
-                      2 * word_bit(sw, n, j, 255 - i) +
-                      4 * word_bit(kw, n, j, 127 - i) +
-                      8 * word_bit(kw, n, j, 255 - i);
-        Q = ge_add_cached(ge_dbl(Q), table[d]);
+    gc_table16_x4(tab, t, var, cst);
+    fe q = ge_identity_x4(t);
+    for (int w = 3; w >= 0; w--) {
+        const uint32_t s_lo = sw[(size_t)w * n + j];
+        const uint32_t s_hi = sw[(size_t)(w + 4) * n + j];
+        const uint32_t k_lo = kw[(size_t)w * n + j];
+        const uint32_t k_hi = kw[(size_t)(w + 4) * n + j];
+        for (int b = 31; b >= 0; b--) {
+            const int d = ((s_lo >> b) & 1) | ((s_hi >> b) & 1) << 1 |
+                          ((k_lo >> b) & 1) << 2 | ((k_hi >> b) & 1) << 3;
+            q = ge_add_cached_x4(t, ge_dbl_x4(t, q), gc_get_x4(tab, d));
+        }
     }
-    const fe d1 = fe_sub(fe_mul(xR, Q.Z), Q.X);
-    const fe d2 = fe_sub(fe_mul(yR, Q.Z), Q.Y);
-    out[j] = (okR && fe_is_zero(d1) && fe_is_zero(d2)) ? 1 : 0;
+    const fe X = fe_shfl(q, 0, 4), Y = fe_shfl(q, 1, 4), Z = fe_shfl(q, 2, 4);
+    const fe d1 = fe_sub(fe_mul(xR, Z), X);
+    const fe d2 = fe_sub(fe_mul(yR, Z), Y);
+    if (t == 0 && lane < n)
+        out[lane] = (okR && fe_is_zero(d1) && fe_is_zero(d2)) ? 1 : 0;
 }
 
 extern "C" int ouro_ed25519_split(const void *Aw, const void *xAw,
@@ -71,8 +87,10 @@ extern "C" int ouro_ed25519_split(const void *Aw, const void *xAw,
                                   const void *Rw, const void *signR,
                                   const void *sw, const void *kw, void *out,
                                   int n, void *stream) {
-    const int blocks = (n + OURO_BLOCK - 1) / OURO_BLOCK;
-    ed25519_split_kernel<<<blocks, OURO_BLOCK, 0, (cudaStream_t)stream>>>(
+    if (n <= 0) return 0;
+    const int per_block = X4_BLOCK / SPLIT_THREADS_PER_LANE;
+    const int blocks = (n + per_block - 1) / per_block;
+    ed25519_split_kernel<<<blocks, X4_BLOCK, 0, (cudaStream_t)stream>>>(
         (const uint32_t *)Aw, (const uint32_t *)xAw,
         (const uint32_t *)A128xw, (const uint32_t *)A128yw,
         (const uint32_t *)Rw, (const int32_t *)signR, (const uint32_t *)sw,

@@ -1,5 +1,5 @@
-// GF(2^255-19) for one lane per thread — the field core of the port's
-// CUDA kernels (ed25519_split.cu, ed25519_verify.cu, vrf_verify.cu,
+// GF(2^255-19), one field element a thread — the field core of the
+// port's CUDA kernels (ed25519_split.cu, ed25519_verify.cu, vrf_verify.cu,
 // gamma8.cu).
 //
 // Same representation and carry schedule as the plain PyTorch version
@@ -338,15 +338,6 @@ __device__ __forceinline__ fe fe_inv(const fe &z) {
     fe t250, z11, z2;
     fe_chain250(z, t250, z11, z2);
     return fe_mul(fe_sq_n(t250, 5), z11);
-}
-
-// z^((p-1)/2): Legendre symbol
-__device__ __forceinline__ fe fe_chi(const fe &z) {
-    fe t250, z11, z2;
-    fe_chain250(z, t250, z11, z2);
-    const fe z4 = fe_mul(z2, z2);
-    const fe z6 = fe_mul(z4, z2);
-    return fe_mul(fe_sq_n(t250, 4), z6);
 }
 
 // bit j of column `lane` of an (nw, n) word array

@@ -32,45 +32,41 @@ def dev():
     return torch.device("cuda")
 
 
-def _words(rng, rows, dev, clear_top=True):
-    a = rng.integers(0, 2**32, (rows, N), dtype=np.uint64).astype(np.uint32)
+def _words(rng, rows, dev, clear_top=True, n=N):
+    a = rng.integers(0, 2**32, (rows, n), dtype=np.uint64).astype(np.uint32)
     if clear_top:
         a[-1] &= 0x7FFFFFFF
     return torch.from_numpy(a).to(dev)
 
 
-def _sign(rng, dev):
-    return torch.from_numpy(rng.integers(0, 2, N).astype(np.int32)).to(dev)
+def _sign(rng, dev, n=N):
+    return torch.from_numpy(rng.integers(0, 2, n).astype(np.int32)).to(dev)
 
 
-@pytest.mark.parametrize("name", sorted(K.KERNELS))
-def test_kernel_equals_plain_version_on_random_lanes(dev, name):
-    """Random words exercise every formula on off-curve garbage too: the
-    kernel must reproduce the plain version byte for byte."""
-    rng = np.random.default_rng(sorted(K.KERNELS).index(name))
+def _random_args(name, rng, dev, n=N):
+    """Random words for each of the kernel's inputs, n lanes."""
+    def w(rows, clear_top=True):
+        return _words(rng, rows, dev, clear_top, n)
     if name == "ed25519_split":
-        args = [_words(rng, 8, dev) for _ in range(5)] + [_sign(rng, dev)] \
-            + [_words(rng, 8, dev, False) for _ in range(2)]
-    elif name == "vrf_verify":
-        args = [_words(rng, 8, dev) for _ in range(3)] + [_sign(rng, dev),
-                                                          _words(rng, 8, dev),
-                                                          _words(rng, 4, dev,
-                                                                 False),
-                                                          _words(rng, 8, dev,
-                                                                 False)]
-    elif name == "ed25519_verify":
-        args = [_words(rng, 8, dev), _sign(rng, dev), _words(rng, 8, dev),
-                _sign(rng, dev), _words(rng, 8, dev, False),
-                _words(rng, 8, dev, False)]
-    elif name == "gamma8":
-        args = [_words(rng, 8, dev), _sign(rng, dev)]
-    else:
-        msgs = rng.integers(0, 256, (N, 64), dtype=np.uint8)
-        digs = np.stack([np.frombuffer(hashlib.blake2b(
-            m.tobytes(), digest_size=32).digest(), np.uint8) for m in msgs])
-        digs[::3, 0] ^= 1
-        args = [torch.from_numpy(B2.msg_words(msgs)).to(dev),
-                torch.from_numpy(B2.digest_words(digs)).to(dev)]
+        return [w(8) for _ in range(5)] + [_sign(rng, dev, n)] \
+            + [w(8, False) for _ in range(2)]
+    if name == "vrf_verify":
+        return [w(8) for _ in range(3)] + [_sign(rng, dev, n), w(8),
+                                           w(4, False), w(8, False)]
+    if name == "ed25519_verify":
+        return [w(8), _sign(rng, dev, n), w(8), _sign(rng, dev, n),
+                w(8, False), w(8, False)]
+    if name == "gamma8":
+        return [w(8), _sign(rng, dev, n)]
+    msgs = rng.integers(0, 256, (n, 64), dtype=np.uint8)
+    digs = np.stack([np.frombuffer(hashlib.blake2b(
+        m.tobytes(), digest_size=32).digest(), np.uint8) for m in msgs])
+    digs[::3, 0] ^= 1
+    return [torch.from_numpy(B2.msg_words(msgs)).to(dev),
+            torch.from_numpy(B2.digest_words(digs)).to(dev)]
+
+
+def _launch_and_compare(dev, name, args):
     before = K.LAUNCHES[name]
     got = getattr(K, name)(*args)
     want = K.KERNELS[name].plain(*args)
@@ -78,6 +74,24 @@ def test_kernel_equals_plain_version_on_random_lanes(dev, name):
     assert K.LAUNCHES[name] == before + 1
     assert got.device.type == "cuda"
     assert torch.equal(got.cpu(), want.cpu())
+
+
+@pytest.mark.parametrize("name", sorted(K.KERNELS))
+def test_kernel_equals_plain_version_on_random_lanes(dev, name):
+    """Random words exercise every formula on off-curve garbage too: the
+    kernel must reproduce the plain version byte for byte."""
+    rng = np.random.default_rng(sorted(K.KERNELS).index(name))
+    _launch_and_compare(dev, name, _random_args(name, rng, dev))
+
+
+@pytest.mark.parametrize("n", [1, 7, 97, 4099])
+@pytest.mark.parametrize("name", ["ed25519_split", "vrf_verify"])
+def test_multi_thread_kernel_on_ragged_lane_counts(dev, name, n):
+    """Several threads a lane: lane counts that no block size divides
+    leave part of the last block past the end, where threads run on
+    clamped inputs and store nothing."""
+    rng = np.random.default_rng(n)
+    _launch_and_compare(dev, name, _random_args(name, rng, dev, n))
 
 
 def test_window_on_the_card_matches_cpu_ref(dev):

@@ -299,3 +299,24 @@ def test_kernel_table_names_each_tpu_kernel():
         text = open(os.path.join(root, path)).read().splitlines()
         assert text[int(line) - 1].startswith(f"def {lines[name]}("), name
         assert os.path.exists(os.path.join(root, k.source)), name
+
+
+def test_kernel_table_launch_shapes_match_the_sources():
+    """threads_per_lane and block, which chip_smoke.py reports, are those
+    of each source's launcher: `<<<blocks, BLOCK` with BLOCK a #define
+    of csrc/, and a `*_THREADS_PER_LANE` #define where a lane has
+    several threads (one otherwise)."""
+    import os
+    import re
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    csrc = os.path.join(root, "ouroboros_tpu_torch", "csrc")
+    defines = {}
+    for f in os.listdir(csrc):
+        text = open(os.path.join(csrc, f)).read()
+        defines.update(re.findall(r"^#define (\w+) (\d+)$", text, re.M))
+    for name, k in K.KERNELS.items():
+        text = open(os.path.join(root, k.source)).read()
+        block = re.findall(r"<<<blocks, (\w+),", text)
+        tpl = re.findall(r"^#define \w+_THREADS_PER_LANE (\d+)$", text, re.M)
+        assert len(block) == 1 and int(defines[block[0]]) == k.block, name
+        assert (int(tpl[0]) if tpl else 1) == k.threads_per_lane, name
