@@ -7,19 +7,23 @@ Run from the repository root on a machine with one NVIDIA Hopper card and
 the CUDA toolkit.  Phases:
 
 1. the card (name and power limit from nvidia-smi) and the build of the
-   five CUDA kernels from ouroboros_tpu_torch/csrc/;
+   eight CUDA kernels from ouroboros_tpu_torch/csrc/;
 2. each kernel against its plain PyTorch version on the card, at the
    main path's lane counts (Ed25519 4096, VRF 2048, betas 2048, KES jobs
    8192; the full Ed25519 verify on the same 4096 requests with A-side
-   tampers added) with tampered lanes, compared exactly; ed25519_split
+   tampers added; the three chain kernels on the field microbenchmark's
+   4096 lanes at the longer chain of mul and of dbl) with tampered
+   lanes, compared exactly; ed25519_split
    and vrf_verify (several threads a lane) again on the first n - 3 of
    those lanes; and a sample of lanes against the CPU references
    (ed25519_ref, vrf_ref, hashlib);
-3. kernel times (CUDA events, median of 7 after a warm-up), the plain
+3. kernel times, CUDA events around the wrapper call (`ms`, median of 7
+   after a warm-up, the host time of the launch included), the plain
    versions' times, the verdict fold's and the per-key fill's times, and
    each kernel's bound: per-lane 32-bit integer multiply-adds counted
-   from the plain version's field products, over the card's integer
-   rate, or its bytes over the memory rate, whichever is larger;
+   from the plain version's field products (for the chains, k times
+   microbench_field.OPS_PER_STEP), over the card's integer rate, or its
+   bytes over the memory rate, whichever is larger;
 4. the main path: `validate.drive` over six 1024-block windows of 1024
    pools, two in flight with fold=True: windows 0-2 valid, window 3 with
    a flipped witness signature, window 4 with a VRF proof held against
@@ -34,11 +38,26 @@ the CUDA toolkit.  Phases:
    and 2048 VRF lanes (split and full Ed25519 verify, VRF verify, betas;
    each row asserts that every lane verifies), where ed25519_verify and
    the three kernels the probe drives must launch;
-6. a `main_path` JSON line, a `kernels` JSON line (each kernel's
-   launches are those of its path: the main path's, or the probe's for
-   ed25519_verify; its launch shape as threads_per_lane and block), the
-   card line, and as the last line
-   {"ok": true, "device": {...}}.
+6. the field microbenchmark path: field_chain, point_chain and
+   point_chain_x4 each held exactly against its plain version on the card
+   for every operation at both of its chain lengths, at every lane count
+   the microbenchmark runs (4096, the JAX script's, and 65536) and on the
+   first n - 3 of each, and 16 lanes of each chain against Python
+   integers (edwards.py's formulas mod p); then `microbench_field --ops
+   --e2e` at 4096 lanes (one warp an SM for the one-thread kernels) and
+   `--ops` at 65536 (sixteen), where each of the three must launch; last,
+   each of the eight kernels' own device time from torch.profiler
+   (`device_ms`, median of 7 after two warm-ups), after every path whose
+   rate is measured, so that no profiling runs before them.  Every
+   per-operation time and device_ms must come from a profiler trace that
+   held exactly the kernel's launches, never from CUDA events, which hold
+   host time;
+7. a `main_path` JSON line, a `microbench_field` JSON line (the
+   per-operation rows at both lane counts), a `kernels` JSON line (each
+   kernel's launches are those of its path: the main path's, the
+   probe's for ed25519_verify, the microbenchmark's for the chains; its
+   launch shape as threads_per_lane and block), the card line, and as
+   the last line {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero before the last line.  Without a
 card, or without the rest of the repository beside it, it exits 2.
@@ -47,7 +66,7 @@ from __future__ import annotations
 
 import json
 import os
-import statistics
+import re
 import subprocess
 import sys
 import time
@@ -77,6 +96,12 @@ PROBE_PATH = ("ed25519_split", "ed25519_verify", "vrf_verify", "gamma8")
 PROBE_ARGS = ["--reps", "5", "--n-ed", "4096", "--n-vrf", "2048", "--old"]
 # the kernels of several threads a lane, checked at a ragged lane count too
 RAGGED = ("ed25519_split", "vrf_verify")
+# the field microbenchmark's lane counts (the JAX script's, and sixteen
+# times it) and its runs at them
+CHAIN_LANES = (4096, 65536)
+CHAIN_SAMPLE = 16            # lanes of each chain held against Python ints
+MB_RUNS = (["--ops", "--e2e", "--lanes", str(CHAIN_LANES[0])],
+           ["--ops", "--lanes", str(CHAIN_LANES[1])])
 
 
 def log(*a):
@@ -89,22 +114,27 @@ def smi(query: str) -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def cuda_ms(fn, reps: int = 7) -> float:
-    """Median milliseconds of fn() over `reps` runs, CUDA events, after a
-    warm-up run."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+def from_profiler(src: str) -> bool:
+    """Whether a time's label (device.kernel_ms's, or two of them joined
+    by '/') says it came from a trace that held exactly the kernel's
+    launches."""
+    return all(re.fullmatch(r"profiler( \(trace \d+ of \d+\))?", s)
+               for s in src.split("/"))
+
+
+def chain_int(op: str, x: int, y: int, k: int, ed) -> int:
+    """The chain kernels' function on one lane in Python integers mod p:
+    a field operation k times, or from P = (x, y, x, y) k doublings or
+    additions of P with edwards.py's formulas, and X + Y + Z + T."""
+    p = ed.P
+    if op in ("dbl", "addc"):
+        P0 = Q = (x, y, x, y)
+        for _ in range(k):
+            Q = ed.pt_double(Q) if op == "dbl" else ed.pt_add(Q, P0)
+        return sum(Q) % p
+    for _ in range(k):
+        x = {"mul": x * y, "sqr": x * x, "add": x + y, "carry": x}[op] % p
+    return x
 
 
 def main() -> int:
@@ -118,7 +148,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
-        from ouroboros_tpu_torch import perf_probe, validate, windowgen
+        from ouroboros_tpu_torch import device as D
+        from ouroboros_tpu_torch import (microbench_field, perf_probe,
+                                         validate, windowgen)
         from ouroboros_tpu_torch.crypto import (
             blake2b as B2, ed25519 as E, ed25519_ref, edwards as ed,
             field as F, kernels as K, vrf as V, vrf_ref)
@@ -212,6 +244,11 @@ def main() -> int:
               "gamma8": beta_args, "kes_hash": kes_args,
               "ed25519_verify": tuple(torch.from_numpy(a).to(dev)
                                       for a in full_arrays)}
+    # the chain kernels at the JAX shape, the longer chain of mul and dbl
+    chains = [name for name, _o, _k in microbench_field.CHAINS]
+    ma, mb = microbench_field.inputs(CHAIN_LANES[0], dev)
+    for name, ops, (_k1, k2) in microbench_field.CHAINS:
+        inputs[name] = (ma, mb, ops[0], k2)
     lanes = {k: v[0].shape[-1] for k, v in inputs.items()}
     log("lanes (each path's widths):", lanes)
     wrappers = {name: getattr(K, name) for name in K.KERNELS}
@@ -288,20 +325,24 @@ def main() -> int:
     # -- 3. times and bounds --------------------------------------------------
     report = []
     for name, args in inputs.items():
-        ms = cuda_ms(lambda: wrappers[name](*args))
-        plain_ms = cuda_ms(lambda: K.KERNELS[name].plain(*args), reps=5)
+        ms = D.event_ms(lambda: wrappers[name](*args))
+        plain_ms = D.event_ms(lambda: K.KERNELS[name].plain(*args), reps=5)
         n = lanes[name]
         if name == "kes_hash":
             ops = n * KES_INT_OPS
+        elif name in chains:
+            ops = n * args[3] * microbench_field.OPS_PER_STEP[args[2]]
         else:
             one = [a[..., :1].cpu() for a in args]
             F.COUNTS.update(mul=0, sqr=0)
             K.KERNELS[name].plain(*one)
             ops = n * (100 * F.COUNTS["mul"] + 55 * F.COUNTS["sqr"])
-        nbytes = sum(a.numel() * a.element_size() for a in args) + \
-            outputs[name].nbytes
+        nbytes = sum(a.numel() * a.element_size() for a in args
+                     if torch.is_tensor(a)) + outputs[name].nbytes
         ops_ms = ops / int_rate * 1e3
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        chain = {"chain": f"{args[2]}, k = {args[3]}"} if name in chains \
+            else {}
         report.append({
             "name": name, "route": "cuda", "source": K.KERNELS[name].source,
             "replaces": K.KERNELS[name].replaces,
@@ -310,10 +351,11 @@ def main() -> int:
             "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "library_ms": None})
-        log(f"{name}: {ms:.4f} ms kernel, {plain_ms:.3f} ms plain, "
-            f"bound {max(ops_ms, bytes_ms):.4f} ms ({ops} int ops, "
-            f"{nbytes} bytes), {n} lanes")
+            "library_ms": None, **chain})
+        log(f"{name}: {ms:.4f} ms kernel (events), {plain_ms:.3f} ms "
+            f"plain, bound {max(ops_ms, bytes_ms):.4f} ms ({ops} int ops, "
+            f"{nbytes} bytes), {n} lanes"
+            + (f" ({chain['chain']})" if chain else ""))
     packed = torch.cat([
         K.ed25519_split(*ed_args).to(torch.uint8),
         K.vrf_verify(*vrf_args).reshape(-1),
@@ -323,14 +365,14 @@ def main() -> int:
     own = [torch.arange(n, dtype=torch.int32, device=dev) for n in (ne, nv)]
     gam = torch.from_numpy(np.ascontiguousarray(v_pf[:, :32])).to(dev)
     cb = torch.from_numpy(np.ascontiguousarray(v_pf[:, 32:48])).to(dev)
-    fold_ms = cuda_ms(lambda: fold_window(packed, ne, nv, nb, nk, own[0],
+    fold_ms = D.event_ms(lambda: fold_window(packed, ne, nv, nb, nk, own[0],
                                           own[1], gam, cb), reps=5)
     wit = [r.vk for b in windows[0] for r in b[windowgen.FIRST_WITNESS:]]
     yw, sgn, _ok = E._decode_compressed(
         np.frombuffer(b"".join(wit), np.uint8).reshape(-1, 32))
     ya = F.limbs_from_words(torch.from_numpy(yw).to(dev))
     sg = torch.from_numpy(sgn).to(dev)
-    fill_ms = cuda_ms(lambda: E.a128_core(ya, sg), reps=5)
+    fill_ms = D.event_ms(lambda: E.a128_core(ya, sg), reps=5)
     log(f"fold (torch ops, {ne}/{nv}/{nb}/{nk} lanes): {fold_ms:.3f} ms; "
         f"a128 fill (torch ops, {len(wit)} keys): {fill_ms:.3f} ms")
 
@@ -411,12 +453,91 @@ def main() -> int:
         raise AssertionError(f"kernels not launched on the probe's path: "
                              f"{missing}")
 
-    # -- 6. report ------------------------------------------------------------
+    # -- 6. the field microbenchmark path -----------------------------------
+    # every (lanes, op, k) its runs launch, and the first n - 3 lanes of
+    # each lane count, exactly against the plain versions; a sample of the
+    # JAX shape's lanes against Python integers
+    for n_all in CHAIN_LANES:
+        a, b = microbench_field.inputs(n_all, dev)
+        for name, ops, ks in microbench_field.CHAINS:
+            for op in ops:
+                for k in ks:
+                    full = None
+                    for n in (n_all, n_all - 3):
+                        args = (a[:, :n].contiguous(), b[:, :n].contiguous(),
+                                op, k)
+                        got = wrappers[name](*args)
+                        want = K.KERNELS[name].plain(*args)
+                        torch.cuda.synchronize()
+                        err = int((got.long() - want.long()).abs().max())
+                        max_err[name] = max(max_err[name], err)
+                        if tuple(got.shape) != tuple(want.shape) or \
+                                err != 0 or (full is not None and not
+                                             torch.equal(got, full[:, :n])):
+                            raise AssertionError(
+                                f"{name} {op}, k = {k}: kernel != plain "
+                                f"version on {n} lanes (max abs err {err})")
+                        full = got if full is None else full
+                    if n_all != CHAIN_LANES[0]:
+                        continue
+                    ints = [chain_int(op, x, y, k, ed) for x, y in
+                            zip(F.unpack(a[:, :CHAIN_SAMPLE]),
+                                F.unpack(b[:, :CHAIN_SAMPLE]))]
+                    if F.unpack(full[:, :CHAIN_SAMPLE]) != ints:
+                        raise AssertionError(f"{name} {op}, k = {k}: lanes "
+                                             f"!= Python integers (edwards.py "
+                                             f"mod p)")
+            log(f"{name}: kernel == plain version for {', '.join(ops)} at "
+                f"k = {ks[0]} and {ks[1]} on {n_all} lanes and the first "
+                f"{n_all - 3} (tolerance 0)"
+                + (f"; {CHAIN_SAMPLE} lanes == Python integers"
+                   if n_all == CHAIN_LANES[0] else ""))
+    K.reset_launches()
+    t = time.perf_counter()
+    mb_runs = [microbench_field.main(argv) for argv in MB_RUNS]
+    mb_launches = dict(K.LAUNCHES)
+    log(f"microbench_field {' / '.join(' '.join(r) for r in MB_RUNS)}: "
+        f"{time.perf_counter() - t:.3f} s, launches {mb_launches}")
+    missing = [name for name, _o, _k in microbench_field.CHAINS
+               if mb_launches[name] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the microbenchmark's "
+                             f"path: {missing}")
+    # every kernel's own device time, at the shapes of its row above
     for entry in report:
-        main = entry["name"] in MAIN_PATH
-        entry["path"] = "main" if main else "perf_probe --old"
-        entry["launches"] = (launches if main
-                             else probe_launches)[entry["name"]]
+        name = entry["name"]
+        args = inputs[name]
+        entry["device_ms"], entry["device_ms_from"] = D.kernel_ms(
+            lambda: wrappers[name](*args), f"{name}_kernel")
+        log(f"{name}: {entry['device_ms']:.4f} ms device "
+            f"({entry['device_ms_from']}), {entry['ms']:.4f} ms events")
+    # differenced per-operation times and the device column are the
+    # kernels' own durations from clean traces, never CUDA events, which
+    # hold host time
+    not_dev = [f"{r['kernel']} {r['op']} at {r['lanes']} lanes"
+               for run in mb_runs for r in run["ops"]
+               if not from_profiler(r["time_from"])]
+    not_dev += [r["name"] for r in mb_runs[0]["e2e"]
+                if r["time_from"] != "host"
+                and not from_profiler(r["time_from"])]
+    not_dev += [e["name"] for e in report
+                if not from_profiler(e["device_ms_from"])]
+    if not_dev:
+        raise AssertionError(f"device times not from the profiler: "
+                             f"{not_dev}")
+
+    # -- 7. report ------------------------------------------------------------
+    for entry in report:
+        name = entry["name"]
+        entry["max_abs_err"] = max_err[name]
+        if name in MAIN_PATH:
+            entry["path"], entry["launches"] = "main", launches[name]
+        elif name in PROBE_PATH:
+            entry["path"] = "perf_probe --old"
+            entry["launches"] = probe_launches[name]
+        else:
+            entry["path"] = "microbench_field --ops"
+            entry["launches"] = mb_launches[name]
     print(json.dumps({"main_path": {
         "fold_ms": fold_ms, "a128_fill_ms": fill_ms,
         "blocks_per_s": [r["blocks_per_s"] for r in runs],
@@ -427,6 +548,10 @@ def main() -> int:
         "wait_s": [r["wait_s"] for r in res["windows"]]},
         "perf_probe": {name: row["per_s"]
                        for name, row in probe_rows.items()}}))
+    print(json.dumps({"microbench_field": {
+        "clock_max_sm_mhz": mb_runs[0]["clock_max_sm_mhz"],
+        "ops": [r for run in mb_runs for r in run["ops"]],
+        "e2e": mb_runs[0]["e2e"]}}))
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {

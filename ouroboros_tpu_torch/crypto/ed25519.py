@@ -126,6 +126,29 @@ def select(stacked, idx):
     return sel.chunk(4, dim=0)
 
 
+# the point chain kernels' operations, in the order of their `kind` argument
+POINT_OPS = ("dbl", "addc")
+
+
+def point_chain_core(a: torch.Tensor, b: torch.Tensor, kind: str,
+                     k: int) -> torch.Tensor:
+    """Plain version of the `point_chain` and `point_chain_x4` kernels
+    (experiments/microbench_field.py:186): from P = (a, b, a, b), Q <-
+    pt_double(Q) (dbl) or Q <- pt_add(Q, P) (addc), k times; returns the
+    unreduced limb sum X + Y + Z + T.  (10, N) carried limbs (any integer
+    type) -> (10, N) int32.  P need not be on the curve: the formulas
+    alone fix the value."""
+    if kind not in POINT_OPS:
+        raise ValueError(f"point op {kind!r} is not one of {POINT_OPS}")
+    a, b = a.to(torch.int64), b.to(torch.int64)
+    P = (a, b, a, b)
+    Q = P
+    for _ in range(k):
+        Q = pt_double(Q) if kind == "dbl" else pt_add(Q, P)
+    X, Y, Z, T = Q
+    return F.add(F.add(F.add(X, Y), Z), T).to(torch.int32)
+
+
 # ---------------------------------------------------------------------------
 # Decompression (RFC 8032 §5.1.3), device_decompress:469
 # ---------------------------------------------------------------------------

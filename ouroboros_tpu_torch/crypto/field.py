@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 P = 2**255 - 19
@@ -198,6 +199,23 @@ def limbs_from_words(w: torch.Tensor) -> torch.Tensor:
     return carry_round(torch.stack(rows))
 
 
+def limbs_from_radix13(r: np.ndarray) -> torch.Tensor:
+    """(20, N) int32 limbs of the JAX package's field (radix 2^13: limb i
+    weighs 2^(13 i), so digits in [0, 2^13) stand for a value below
+    2^260) -> (10, N) carried limbs of the same value mod p.
+
+    It converts by value: digit i lands at bit 13 i of the port limb that
+    holds that bit, and three carry rounds bring the sums (below 2^59)
+    to the carried bound.  Port and JAX limbs agree only on the value."""
+    r = torch.from_numpy(np.asarray(r, dtype=np.int64))
+    rows = [torch.zeros_like(r[0]) for _ in range(NLIMBS)]
+    for i in range(r.shape[0]):
+        bit = 13 * i
+        k = max(j for j in range(NLIMBS) if OFFSETS[j] <= bit)
+        rows[k] = rows[k] + (r[i] << (bit - OFFSETS[k]))
+    return carry_round(carry_round(carry_round(torch.stack(rows))))
+
+
 def bytes_from_canon(c: torch.Tensor) -> torch.Tensor:
     """(10, N) canonical digits -> (32, N) int64 little-endian byte values
     (a byte spans at most two limbs)."""
@@ -259,3 +277,34 @@ def pow_chi(z):
     z4 = mul(z2, z2)
     z6 = mul(z4, z2)
     return mul(_sq_n(t250, 4), z6)
+
+
+# -- the per-operation probe (experiments/microbench_field.py:160) ----------
+
+# the `field_chain` kernel's operations, in the order of its `op` argument
+FIELD_OPS = ("mul", "sqr", "add", "carry")
+
+
+def field_chain_core(a: torch.Tensor, b: torch.Tensor, op: str,
+                     k: int) -> torch.Tensor:
+    """Plain version of the `field_chain` kernel: a <- op(a, b), k times.
+    (10, N) carried limbs (any integer type) -> (10, N) int32.
+
+    mul is `mul(a, b)` and sqr `sqr(a)` (the JAX chain's mul(a, a): the
+    same value, by the squaring the port's kernels run); add is
+    `carry_round(add(a, b))`, because the JAX field's add carries and this
+    one does not (192 uncarried adds would leave int32); carry is
+    `carry_round(a)`."""
+    if op not in FIELD_OPS:
+        raise ValueError(f"field op {op!r} is not one of {FIELD_OPS}")
+    a, b = a.to(torch.int64), b.to(torch.int64)
+    for _ in range(k):
+        if op == "mul":
+            a = mul(a, b)
+        elif op == "sqr":
+            a = sqr(a)
+        elif op == "add":
+            a = carry_round(add(a, b))
+        else:
+            a = carry_round(a)
+    return a.to(torch.int32)

@@ -1,19 +1,26 @@
 """The port's CUDA kernels: build, load, wrappers and launch counters.
 
-The five TPU kernels of `ouroboros_tpu/crypto/pallas_kernels.py` (four on
-the validation window's path, and the full 256-bit Ed25519 verify of the
-standalone batch API) are written by hand for Hopper in CUDA C++ under
-`../csrc/` and compiled with nvcc for sm_90a into one shared library with
-a plain C interface, loaded with ctypes.  The build runs at first use,
-into `ouroboros_tpu_torch/build/` (one nvcc per source, all started
-together, then one link), keyed by a hash of the sources and flags.
+The seven TPU kernels of the JAX package are written by hand for Hopper
+in CUDA C++ under `../csrc/`: the five of
+`ouroboros_tpu/crypto/pallas_kernels.py` (four on the validation window's
+path, and the full 256-bit Ed25519 verify of the standalone batch API),
+and the field-op and point-op chains of `experiments/microbench_field.py`
+(`field_chain`, and `point_chain` / `point_chain_x4` for the port's two
+point-op forms).  They are compiled with nvcc for sm_90a into one shared
+library with a plain C interface, loaded with ctypes.  The build runs at
+first use, into `ouroboros_tpu_torch/build/` (one nvcc per source, all
+started together, then one link), keyed by a hash of the sources and
+flags.
 
-Each wrapper takes packed (8, N) uint32 words: the JAX call's layout for
-the four window kernels, and for `ed25519_verify` the words of
+Each verify wrapper takes packed (8, N) uint32 words: the JAX call's
+layout for the four window kernels, and for `ed25519_verify` the words of
 `ed25519.prepare_words_batch` in place of the JAX call's radix-2^13 limbs
-and bit rows.  It returns the JAX output layout.  `ed25519_split` runs
-four threads a lane and `vrf_verify` eight (`csrc/ge25519_x4.cuh`: one
-thread a point coordinate); the other three run one thread a lane.
+and bit rows.  It returns the JAX output layout.  The chain wrappers take
+(10, N) int32 carried limbs (`field.limbs_from_radix13` of the JAX
+script's inputs), an operation name and a count.  `ed25519_split` and
+`point_chain_x4` run four threads a lane and `vrf_verify` eight
+(`csrc/ge25519_x4.cuh`: one thread a point coordinate); the others run
+one thread a lane.
 
 On a CPU tensor a wrapper runs the kernel's plain PyTorch version (named
 in `KERNELS`); on a CUDA tensor it launches the kernel on the current
@@ -37,6 +44,7 @@ import torch
 from .. import device as device_mod
 from . import blake2b as B2
 from . import ed25519 as E
+from . import field as F
 from . import vrf as V
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -78,6 +86,18 @@ KERNELS = {k.name: k for k in (
            "ouroboros_tpu_torch/csrc/ed25519_verify.cu",
            "ouroboros_tpu/crypto/pallas_kernels.py:105",
            E.verify_full_words_core, 1, 32),
+    Kernel("field_chain", "ouro_field_chain",
+           "ouroboros_tpu_torch/csrc/field_chain.cu",
+           "experiments/microbench_field.py:160",
+           F.field_chain_core, 1, 32),
+    Kernel("point_chain", "ouro_point_chain",
+           "ouroboros_tpu_torch/csrc/point_chain.cu",
+           "experiments/microbench_field.py:186",
+           E.point_chain_core, 1, 32),
+    Kernel("point_chain_x4", "ouro_point_chain_x4",
+           "ouroboros_tpu_torch/csrc/point_chain.cu",
+           "experiments/microbench_field.py:186",
+           E.point_chain_core, 4, 64),
 )}
 
 # launches per kernel since the last reset_launches(); counted only where a
@@ -161,12 +181,17 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(build())
             p, i = ctypes.c_void_p, ctypes.c_int
-            argc = {"ouro_ed25519_split": 9, "ouro_vrf_verify": 8,
-                    "ouro_gamma8": 3, "ouro_kes_hash": 3,
-                    "ouro_ed25519_verify": 7}
-            for sym, n_ptr in argc.items():
+            # every entry point takes its tensors' pointers (inputs, then
+            # the output), its int arguments, then (int n, stream)
+            argc = {"ouro_ed25519_split": (9, 0), "ouro_vrf_verify": (8, 0),
+                    "ouro_gamma8": (3, 0), "ouro_kes_hash": (3, 0),
+                    "ouro_ed25519_verify": (7, 0),
+                    "ouro_field_chain": (3, 2),     # op, k
+                    "ouro_point_chain": (3, 2),     # kind, k
+                    "ouro_point_chain_x4": (3, 2)}  # kind, k
+            for sym, (n_ptr, n_int) in argc.items():
                 fn = getattr(lib, sym)
-                fn.argtypes = [p] * n_ptr + [i, p]
+                fn.argtypes = [p] * n_ptr + [i] * n_int + [i, p]
                 fn.restype = ctypes.c_int
             _lib = lib
     return _lib
@@ -186,11 +211,13 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
         raise ValueError(f"{name}: not contiguous")
 
 
-def _launch(kernel: str, args, out: torch.Tensor, n: int) -> torch.Tensor:
+def _launch(kernel: str, args, out: torch.Tensor, n: int,
+            *ints: int) -> torch.Tensor:
     fn = getattr(library(), KERNELS[kernel].symbol)
     stream = torch.cuda.current_stream(out.device).cuda_stream
     with torch.cuda.device(out.device):
-        err = fn(*[a.data_ptr() for a in args], out.data_ptr(), n, stream)
+        err = fn(*[a.data_ptr() for a in args], out.data_ptr(), *ints, n,
+                 stream)
     if err != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with "
                            f"cudaError_t {err}")
@@ -266,6 +293,43 @@ def ed25519_verify(Aw, signA, Rw, signR, sw, kw):
         _check(name, t, torch.int32, (n,), dev)
     out = torch.empty(n, dtype=torch.int32, device=dev)
     return _launch("ed25519_verify", (Aw, signA, Rw, signR, sw, kw), out, n)
+
+
+def _chain(kernel: str, ops: tuple, a, b, op: str, k: int) -> torch.Tensor:
+    """A chain kernel's wrapper: `op` one of `ops` (its index is the
+    kernel's op argument), k steps, (10, N) int32 limbs x2."""
+    if op not in ops:
+        raise ValueError(f"operation {op!r} is not one of {ops}")
+    if not 0 <= k < 2**31:
+        raise ValueError(f"chain length {k} out of range")
+    if a.device.type == "cpu":
+        return KERNELS[kernel].plain(a, b, op, k)
+    n, dev = a.shape[1], a.device
+    for name, t in (("a", a), ("b", b)):
+        _check(name, t, torch.int32, (F.NLIMBS, n), dev)
+    out = torch.empty((F.NLIMBS, n), dtype=torch.int32, device=dev)
+    return _launch(kernel, (a, b), out, n, ops.index(op), k)
+
+
+def field_chain(a, b, op: str, k: int):
+    """k field operations a lane (the per-operation probe): a <- op(a, b)
+    k times, op one of field.FIELD_OPS.  (10, N) int32 carried limbs x2
+    -> (10, N) int32."""
+    return _chain("field_chain", F.FIELD_OPS, a, b, op, k)
+
+
+def point_chain(a, b, kind: str, k: int):
+    """k point operations a lane, one thread a lane: from P = (a, b, a,
+    b), Q <- pt_double(Q) or pt_add(Q, P) k times, kind one of
+    ed25519.POINT_OPS; X + Y + Z + T.  (10, N) int32 carried limbs x2 ->
+    (10, N) int32."""
+    return _chain("point_chain", E.POINT_OPS, a, b, kind, k)
+
+
+def point_chain_x4(a, b, kind: str, k: int):
+    """`point_chain` on four threads a lane, one a coordinate
+    (csrc/ge25519_x4.cuh); the same function and plain version."""
+    return _chain("point_chain_x4", E.POINT_OPS, a, b, kind, k)
 
 
 # -- standalone batch API -----------------------------------------------------

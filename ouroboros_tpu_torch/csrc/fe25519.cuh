@@ -288,6 +288,21 @@ __device__ __forceinline__ fe fe_from_words(const uint32_t *w, int n, int j) {
     return fe_carry(h);
 }
 
+// column j of a (10, n) int32 limb array, lane last: a warp's loads of one
+// limb row are coalesced
+__device__ __forceinline__ fe fe_from_limbs(const int32_t *a, int n, int j) {
+    fe h;
+#pragma unroll
+    for (int k = 0; k < 10; k++) h.v[k] = a[(size_t)k * n + j];
+    return h;
+}
+
+__device__ __forceinline__ void fe_to_limbs(int32_t *o, int n, int j,
+                                            const fe &h) {
+#pragma unroll
+    for (int k = 0; k < 10; k++) o[(size_t)k * n + j] = h.v[k];
+}
+
 // canonical digits -> 32 little-endian bytes (field.bytes_from_canon)
 __device__ __forceinline__ void fe_bytes(uint8_t out[32], const fe &c) {
 #pragma unroll

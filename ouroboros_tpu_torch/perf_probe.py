@@ -42,8 +42,9 @@ from .crypto import vrf as V
 from .crypto.precompute import shared_cache
 
 
-def _all_valid(row: str, oks) -> None:
-    """The probe's data is all valid: every lane of every row verifies."""
+def all_valid(row: str, oks) -> None:
+    """Every lane of a row verifies (the probes' data is all valid);
+    raises naming the first lanes that did not."""
     bad = np.flatnonzero(~np.asarray(oks, dtype=bool))
     if bad.size:
         raise AssertionError(f"{row}: {bad.size} lanes rejected, first "
@@ -119,7 +120,7 @@ def main(argv=None) -> dict:
         xa, xw, yw, known = cache.assemble(vks)
         ok = K.ed25519_split(*device_mod.stage(
             (Aw, xa, xw, yw, Rw, signR, sw, kw), dev))
-        _all_valid("ed split e2e", ok.cpu().numpy() & parse_ok & known)
+        all_valid("ed split e2e", ok.cpu().numpy() & parse_ok & known)
     row("ed split e2e", n, run_split_e2e)
 
     (Aw, _sA, Rw, signR, sw, kw), _ = E.prepare_words_batch(vks, msgs, sigs)
@@ -127,23 +128,23 @@ def main(argv=None) -> dict:
     split_args = device_mod.stage((Aw, xa, xw, yw, Rw, signR, sw, kw), dev)
 
     def run_split_dev():
-        _all_valid("ed split device",
-                   K.ed25519_split(*split_args).cpu().numpy())
+        all_valid("ed split device",
+                  K.ed25519_split(*split_args).cpu().numpy())
     row("ed split device", n, run_split_dev)
 
     # --- Ed25519 full 256-bit (the standalone batch verify's kernel)
     if args.old:
         def run_full_e2e():
-            _all_valid("ed full e2e",
-                       K.batch_verify_ed25519(vks, msgs, sigs, device=dev))
+            all_valid("ed full e2e",
+                      K.batch_verify_ed25519(vks, msgs, sigs, device=dev))
         row("ed full e2e", n, run_full_e2e)
 
         arrays, _ = E.prepare_words_batch(vks, msgs, sigs)
         full_args = device_mod.stage(arrays, dev)
 
         def run_full_dev():
-            _all_valid("ed full device",
-                       K.ed25519_verify(*full_args).cpu().numpy())
+            all_valid("ed full device",
+                      K.ed25519_verify(*full_args).cpu().numpy())
         row("ed full device", n, run_full_dev)
 
     # --- VRF verify and betas
@@ -151,12 +152,12 @@ def main(argv=None) -> dict:
         def run_vrf():
             oks, _betas = V.batch_verify_vrf(vvks, alphas, proofs,
                                              device=dev)
-            _all_valid("vrf e2e", oks)
+            all_valid("vrf e2e", oks)
         row("vrf e2e", nv, run_vrf)
 
         def run_betas():
             betas = V.batch_betas(proofs, device=dev)
-            _all_valid("betas e2e", [b is not None for b in betas])
+            all_valid("betas e2e", [b is not None for b in betas])
         row("betas e2e", nv, run_betas)
 
     print(json.dumps({"perf_probe": {

@@ -13,8 +13,9 @@ window is KES-cold and later ones are KES-warm, with fresh witness keys
 in every window.  Everything is pure Python (the port's CPU references),
 deterministic in the seed, and can be spread over a process pool: a
 worker makes every block of one pool.  Importing this module imports no
-torch, so workers start quickly.  `signatures` and `proofs` make the
-standalone batch APIs' data (one key, many inputs) the same way.
+torch, so workers start quickly.  `signatures`, `proofs` and
+`kes_signatures` make the standalone batch APIs' and the field
+microbenchmark's data (one key, many inputs) the same way.
 """
 from __future__ import annotations
 
@@ -143,6 +144,12 @@ def _prove_job(args):
     return [vrf_ref.prove(sk, a) for a in alphas]
 
 
+def _kes_sign_job(args):
+    seed, msgs = args
+    sk = kes.KesSignKey(KES_DEPTH, seed)
+    return [sk.sign(m).to_bytes() for m in msgs]
+
+
 # items per worker job at least, so that a small batch (the CPU tests')
 # signs in this process instead of paying for spawned workers' start-up
 _MIN_CHUNK = 128
@@ -163,3 +170,9 @@ def signatures(sk: bytes, msgs: list, workers: int = 1) -> list:
 def proofs(sk: bytes, alphas: list, workers: int = 1) -> list:
     """ECVRF proofs of every input by one key."""
     return _chunked(_prove_job, sk, alphas, workers)
+
+
+def kes_signatures(seed: bytes, msgs: list, workers: int = 1) -> list:
+    """Sum6 KES signature bytes of every message by the key of `seed`, at
+    period 0 (each worker derives the key again)."""
+    return _chunked(_kes_sign_job, seed, msgs, workers)

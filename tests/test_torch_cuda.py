@@ -14,7 +14,9 @@ import pytest
 import torch
 
 from ouroboros_tpu_torch.crypto import blake2b as B2
+from ouroboros_tpu_torch.crypto import ed25519 as E
 from ouroboros_tpu_torch.crypto import ed25519_ref, kes, vrf_ref
+from ouroboros_tpu_torch.crypto import field as F
 from ouroboros_tpu_torch.crypto import kernels as K
 from ouroboros_tpu_torch.crypto.backend import (CpuRefBackend, Ed25519Req,
                                                 KesReq, VrfReq)
@@ -43,6 +45,18 @@ def _sign(rng, dev, n=N):
     return torch.from_numpy(rng.integers(0, 2, n).astype(np.int32)).to(dev)
 
 
+# the chain kernels' operations (microbench_field's path)
+CHAIN_OPS = {"field_chain": F.FIELD_OPS, "point_chain": E.POINT_OPS,
+             "point_chain_x4": E.POINT_OPS}
+
+
+def _limbs(rng, dev, n):
+    """Two (10, n) int32 carried limb arrays of random radix-2^13 digits."""
+    return [F.limbs_from_radix13(rng.integers(0, 8192, (20, n),
+                                              dtype=np.int32))
+            .to(torch.int32).to(dev) for _ in range(2)]
+
+
 def _random_args(name, rng, dev, n=N):
     """Random words for each of the kernel's inputs, n lanes."""
     def w(rows, clear_top=True):
@@ -58,6 +72,8 @@ def _random_args(name, rng, dev, n=N):
                 w(8, False), w(8, False)]
     if name == "gamma8":
         return [w(8), _sign(rng, dev, n)]
+    if name in CHAIN_OPS:
+        return _limbs(rng, dev, n) + [CHAIN_OPS[name][-1], 5]
     msgs = rng.integers(0, 256, (n, 64), dtype=np.uint8)
     digs = np.stack([np.frombuffer(hashlib.blake2b(
         m.tobytes(), digest_size=32).digest(), np.uint8) for m in msgs])
@@ -92,6 +108,18 @@ def test_multi_thread_kernel_on_ragged_lane_counts(dev, name, n):
     clamped inputs and store nothing."""
     rng = np.random.default_rng(n)
     _launch_and_compare(dev, name, _random_args(name, rng, dev, n))
+
+
+@pytest.mark.parametrize("n", [1, 7, 97, 4099])
+@pytest.mark.parametrize("name", sorted(CHAIN_OPS))
+def test_chain_kernels_on_every_operation(dev, name, n):
+    """Every operation of each chain kernel on random limbs, at lane
+    counts that no block divides; kernel and plain version limb for
+    limb."""
+    rng = np.random.default_rng(n)
+    a, b = _limbs(rng, dev, n)
+    for op in CHAIN_OPS[name]:
+        _launch_and_compare(dev, name, [a, b, op, 9])
 
 
 def test_window_on_the_card_matches_cpu_ref(dev):

@@ -32,7 +32,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 19          # every module of both slices imported
+    assert n_modules >= 20          # every module of every slice imported
 
 
 def _require_no_card():
@@ -78,3 +78,13 @@ def test_standalone_apis_and_probe_raise_without_a_card():
         vrf.batch_betas([])
     with pytest.raises(RuntimeError):
         perf_probe.main(["--n-ed", "1", "--n-vrf", "1", "--reps", "1"])
+
+
+def test_microbench_field_raises_without_a_card():
+    _require_no_card()
+    from ouroboros_tpu_torch import microbench_field
+    with pytest.raises(RuntimeError):
+        microbench_field.main(["--ops", "--lanes", "8", "--reps", "1"])
+    with pytest.raises(RuntimeError):
+        microbench_field.main(["--e2e", "--n-ed", "1", "--n-vrf", "1",
+                               "--n-kes", "1", "--reps", "1"])

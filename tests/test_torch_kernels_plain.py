@@ -286,26 +286,34 @@ def test_wrapper_argument_checks_raise(bad):
 
 
 def test_kernel_table_names_each_tpu_kernel():
-    assert set(K.KERNELS) == {"ed25519_split", "vrf_verify", "gamma8",
-                              "kes_hash", "ed25519_verify"}
+    """Seven TPU kernels, eight entries: the five of pallas_kernels.py and
+    the two chain kernels of experiments/microbench_field.py (each a
+    nested `kernel` of the function making it), the point chain in two
+    launch shapes."""
     lines = {"ed25519_split": "_ed25519_split_kernel",
              "vrf_verify": "_vrf_verify_kernel",
              "gamma8": "_gamma8_kernel", "kes_hash": "_kes_hash_kernel",
-             "ed25519_verify": "_ed25519_verify_kernel"}
+             "ed25519_verify": "_ed25519_verify_kernel",
+             "field_chain": "kernel", "point_chain": "kernel",
+             "point_chain_x4": "kernel"}
+    assert set(K.KERNELS) == set(lines)
+    assert len({k.replaces for k in K.KERNELS.values()}) == 7
     import os
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     for name, k in K.KERNELS.items():
         path, line = k.replaces.split(":")
         text = open(os.path.join(root, path)).read().splitlines()
-        assert text[int(line) - 1].startswith(f"def {lines[name]}("), name
+        assert text[int(line) - 1].lstrip().startswith(
+            f"def {lines[name]}("), name
         assert os.path.exists(os.path.join(root, k.source)), name
 
 
 def test_kernel_table_launch_shapes_match_the_sources():
     """threads_per_lane and block, which chip_smoke.py reports, are those
-    of each source's launcher: `<<<blocks, BLOCK` with BLOCK a #define
-    of csrc/, and a `*_THREADS_PER_LANE` #define where a lane has
-    several threads (one otherwise)."""
+    of each kernel's launcher (its `extern "C"` function in the source,
+    which may hold several): `<<<blocks, BLOCK` with BLOCK a #define of
+    csrc/, and a `*_THREADS_PER_LANE` #define used in the launcher where
+    a lane has several threads (one otherwise)."""
     import os
     import re
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -316,7 +324,13 @@ def test_kernel_table_launch_shapes_match_the_sources():
         defines.update(re.findall(r"^#define (\w+) (\d+)$", text, re.M))
     for name, k in K.KERNELS.items():
         text = open(os.path.join(root, k.source)).read()
-        block = re.findall(r"<<<blocks, (\w+),", text)
-        tpl = re.findall(r"^#define \w+_THREADS_PER_LANE (\d+)$", text, re.M)
+        launchers = re.split(r'^extern "C" ', text, flags=re.M)[1:]
+        body = [t for t in launchers if t.startswith(f"int {k.symbol}(")]
+        assert len(body) == 1, name
+        block = re.findall(r"<<<blocks, (\w+),", body[0])
+        tpl = sorted(set(re.findall(r"\b(\w+_THREADS_PER_LANE)\b",
+                                    body[0])))
         assert len(block) == 1 and int(defines[block[0]]) == k.block, name
-        assert (int(tpl[0]) if tpl else 1) == k.threads_per_lane, name
+        assert len(tpl) <= 1, name
+        assert (int(defines[tpl[0]]) if tpl else 1) == \
+            k.threads_per_lane, name
