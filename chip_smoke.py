@@ -13,8 +13,8 @@ the CUDA toolkit.  Phases:
    8192; the full Ed25519 verify on the same 4096 requests with A-side
    tampers added; the three chain kernels on the field microbenchmark's
    4096 lanes at the longer chain of mul and of dbl) with tampered
-   lanes, compared exactly; ed25519_split
-   and vrf_verify (several threads a lane) again on the first n - 3 of
+   lanes, compared exactly; ed25519_split, vrf_verify, gamma8 and
+   ed25519_verify (several threads a lane) again on the first n - 3 of
    those lanes; and a sample of lanes against the CPU references
    (ed25519_ref, vrf_ref, hashlib);
 3. kernel times, CUDA events around the wrapper call (`ms`, median of 7
@@ -95,7 +95,7 @@ MAIN_PATH = ("ed25519_split", "vrf_verify", "gamma8", "kes_hash")
 PROBE_PATH = ("ed25519_split", "ed25519_verify", "vrf_verify", "gamma8")
 PROBE_ARGS = ["--reps", "5", "--n-ed", "4096", "--n-vrf", "2048", "--old"]
 # the kernels of several threads a lane, checked at a ragged lane count too
-RAGGED = ("ed25519_split", "vrf_verify")
+RAGGED = ("ed25519_split", "vrf_verify", "gamma8", "ed25519_verify")
 # the field microbenchmark's lane counts (the JAX script's, and sixteen
 # times it) and its runs at them
 CHAIN_LANES = (4096, 65536)

@@ -17,10 +17,11 @@ layout for the four window kernels, and for `ed25519_verify` the words of
 `ed25519.prepare_words_batch` in place of the JAX call's radix-2^13 limbs
 and bit rows.  It returns the JAX output layout.  The chain wrappers take
 (10, N) int32 carried limbs (`field.limbs_from_radix13` of the JAX
-script's inputs), an operation name and a count.  `ed25519_split` and
-`point_chain_x4` run four threads a lane and `vrf_verify` eight
-(`csrc/ge25519_x4.cuh`: one thread a point coordinate); the others run
-one thread a lane.
+script's inputs), an operation name and a count.  `ed25519_split`,
+`ed25519_verify` and `point_chain_x4` run four threads a lane and
+`vrf_verify` eight (`csrc/ge25519_x4.cuh`: one thread a point
+coordinate); `gamma8` runs eight, each field product spread over them
+(`csrc/fe25519_lp.cuh`); the others run one thread a lane.
 
 On a CPU tensor a wrapper runs the kernel's plain PyTorch version (named
 in `KERNELS`); on a CUDA tensor it launches the kernel on the current
@@ -77,7 +78,7 @@ KERNELS = {k.name: k for k in (
     Kernel("gamma8", "ouro_gamma8",
            "ouroboros_tpu_torch/csrc/gamma8.cu",
            "ouroboros_tpu/crypto/pallas_kernels.py:407",
-           V.gamma8_words_core, 1, 32),
+           V.gamma8_words_core, 8, 64),
     Kernel("kes_hash", "ouro_kes_hash",
            "ouroboros_tpu_torch/csrc/kes_hash.cu",
            "ouroboros_tpu/crypto/pallas_kernels.py:454",
@@ -85,7 +86,7 @@ KERNELS = {k.name: k for k in (
     Kernel("ed25519_verify", "ouro_ed25519_verify",
            "ouroboros_tpu_torch/csrc/ed25519_verify.cu",
            "ouroboros_tpu/crypto/pallas_kernels.py:105",
-           E.verify_full_words_core, 1, 32),
+           E.verify_full_words_core, 4, 64),
     Kernel("field_chain", "ouro_field_chain",
            "ouroboros_tpu_torch/csrc/field_chain.cu",
            "experiments/microbench_field.py:160",

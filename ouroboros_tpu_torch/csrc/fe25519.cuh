@@ -1,6 +1,8 @@
 // GF(2^255-19), one field element a thread — the field core of the
 // port's CUDA kernels (ed25519_split.cu, ed25519_verify.cu, vrf_verify.cu,
-// gamma8.cu).
+// the chain kernels).  gamma8.cu spreads each product over eight threads
+// with fe25519_lp.cuh, which builds on this file's limbs and carry
+// schedule.
 //
 // Same representation and carry schedule as the plain PyTorch version
 // (ouroboros_tpu_torch/crypto/field.py), so kernel and plain version agree
@@ -353,10 +355,4 @@ __device__ __forceinline__ fe fe_inv(const fe &z) {
     fe t250, z11, z2;
     fe_chain250(z, t250, z11, z2);
     return fe_mul(fe_sq_n(t250, 5), z11);
-}
-
-// bit j of column `lane` of an (nw, n) word array
-__device__ __forceinline__ int word_bit(const uint32_t *w, int n, int lane,
-                                        int j) {
-    return (w[(size_t)(j >> 5) * n + lane] >> (j & 31)) & 1;
 }

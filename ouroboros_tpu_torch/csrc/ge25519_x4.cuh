@@ -3,21 +3,22 @@
 //
 // A point's four threads are an aligned group of four lanes of the warp;
 // slot t (0..3) holds coordinate t of the extended point (X, Y, Z, T).
-// ge_dbl, ge_add_cached and ge_add (ge25519.cuh) are each two rounds of
-// four independent field products with additions between (ge_add has one
-// more product, C = TT 2d, between its rounds).  In a round slot t
-// computes the t-th product, picking its operands with fe_sel so that one
-// fe_mul / fe_sq call serves all four slots; the four results are
-// exchanged with __shfl_sync of width 4, and every slot forms the next
-// round's operands from all four with the same additions as ge25519.cuh.
-// Round 2 leaves coordinate t of the result in slot t, so no exchange
-// closes an op: the next op gathers what it needs (X and Y) first.  Every
-// field operation is ge25519.cuh's (and the plain version's) on the same
+// A doubling, a cached addition and an addition (ed25519.pt_double,
+// pt_add_cached, pt_add; ge25519.cuh's ge_dbl and ge_add) are each two
+// rounds of four independent field products with additions between (the
+// addition has one more product, C = TT 2d, between its rounds).  In a
+// round slot t computes the t-th product, picking its operands with fe_sel
+// so that one fe_mul / fe_sq call serves all four slots; the four results
+// are exchanged with __shfl_sync of width 4, and every slot forms the next
+// round's operands from all four with the same additions as the plain
+// version.  Round 2 leaves coordinate t of the result in slot t, so no
+// exchange closes an op: the next op gathers what it needs (X and Y)
+// first.  Every field operation is the plain version's on the same
 // operands: only the thread that computes it changes, so the results stay
 // bit-exact, garbage lanes included.
 //
 // A cached point (ymx, ypx, z2, t2d) is held one column a slot too, in the
-// order of ge_add_cached's round-1 products: slot 0 ymx (times Y - X),
+// order of pt_add_cached's round-1 products: slot 0 ymx (times Y - X),
 // slot 1 ypx (times Y + X), slot 2 z2 (times Z, slot 2's own coordinate),
 // slot 3 t2d (times T, slot 3's own).  A table of them lies in shared
 // memory as [entry][limb][thread of the block]: each thread reads back only
@@ -69,7 +70,7 @@ __device__ __forceinline__ fe ge_dbl_x4(int t, const fe &c) {
     return ge_round2_x4(t, E, F, G, H);
 }
 
-// ge_add_cached: coordinate t of p, column t of q -> coordinate t of p + q
+// pt_add_cached: coordinate t of p, column t of q -> coordinate t of p + q
 __device__ __forceinline__ fe ge_add_cached_x4(int t, const fe &c,
                                                const fe &q) {
     const fe X = fe_shfl(c, 0, 4), Y = fe_shfl(c, 1, 4);
@@ -96,7 +97,7 @@ __device__ __forceinline__ fe ge_add_x4(int t, const fe &c, const fe &d) {
                         fe_add(B, A));
 }
 
-// ge_cached: coordinate t of q -> column t of its cached form
+// to_cached: coordinate t of q -> column t of its cached form
 __device__ __forceinline__ fe ge_cached_x4(int t, const fe &c) {
     const fe X = fe_shfl(c, 0, 4), Y = fe_shfl(c, 1, 4);
     return fe_pick4(t, fe_sub(Y, X), fe_add(Y, X), fe_add(c, c),
@@ -139,8 +140,10 @@ __device__ __forceinline__ fe gc_get_x4(const int32_t *tab, int e) {
     return q;
 }
 
-// gc_table16 with slot t's column of each entry: T[c + 4v] = C[c] + V[v],
-// var[1..3] the variable half (coordinate t), cst[1..3] the constant half
+// the 16-entry cached table of both Ed25519 ladders (ed25519.split_table_16
+// / joint_table_16), slot t's column of each entry: T[c + 4v] = C[c] +
+// V[v], var[1..3] the variable half (coordinate t), cst[1..3] the constant
+// half, C[0] and V[0] the identity
 __device__ __forceinline__ void gc_table16_x4(int32_t *tab, int t,
                                               const fe var[4],
                                               const ge_const_pt cst[4]) {

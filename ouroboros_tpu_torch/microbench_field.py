@@ -17,8 +17,11 @@ arrays from default_rng(0), carried across by value
 (`field.limbs_from_radix13`).  The cost of one batched operation is the
 difference of the two chains' times over the difference of their
 lengths, printed in microseconds and in cycles at the card's maximum SM
-clock (`nvidia-smi --query-gpu=clocks.max.sm`).  Times are device times:
-the chain kernel's duration from torch.profiler, median of `--reps`
+clock (`nvidia-smi --query-gpu=clocks.max.sm`).  The field rows time
+`csrc/fe25519.cuh`'s one-thread product; `PRODUCTS`, printed first, says
+which kernels run it and that `gamma8` runs `csrc/fe25519_lp.cuh`'s
+limb-parallel product instead.  Times are device times: the chain
+kernel's duration from torch.profiler, median of `--reps`
 calls after two warm-ups (`device.kernel_ms`); a line says where the
 trace held more or fewer launches than calls, or where CUDA events had
 to stand in.  4096 lanes, the default, are the JAX shape and
@@ -74,6 +77,13 @@ OPS_PER_STEP = {"mul": 100, "sqr": 55, "add": 10 + 102, "carry": 102,
                 "dbl": 4 * 55 + 4 * 100, "addc": 9 * 100}
 
 
+# which kernels run the product the field rows time
+PRODUCTS = ("mul and sqr: csrc/fe25519.cuh's one-thread fe_mul / fe_sq, "
+            "the product of ed25519_split, ed25519_verify, vrf_verify and "
+            "the point chains; gamma8 runs csrc/fe25519_lp.cuh's "
+            "limb-parallel product (eight threads a lane), not timed here")
+
+
 def inputs(lanes: int, device) -> tuple[torch.Tensor, torch.Tensor]:
     """The JAX script's two inputs, (20, lanes) radix-2^13 limbs from
     default_rng(0), as (10, lanes) int32 carried limbs on `device`."""
@@ -126,6 +136,7 @@ def bench_ops(lanes: int, dev: torch.device, reps: int) -> list[dict]:
     a, b = inputs(lanes, dev)
     mhz = max_sm_mhz() if dev.type == "cuda" else None
     rows = []
+    print(PRODUCTS, flush=True)
     for name, ops, (k1, k2) in CHAINS:
         wrapper = getattr(K, name)
         for op in ops:

@@ -87,6 +87,66 @@ def test_mul_at_the_limb_bound_stays_exact():
         assert bool((out[k].abs() <= (1 << (w - 1)) + 256).all())
 
 
+def _lp_mul_plan(f, g):
+    """csrc/fe25519_lp.cuh's lp_mul_i in Python ints, owner by owner: each
+    value the header keeps in 32 bits must fit them, each 64-bit one 64."""
+    def fits(x, bits):
+        assert -(1 << (bits - 1)) <= x < 1 << (bits - 1), (x, bits)
+        return x
+    t = {}
+    for r in range(5):
+        G = [g[(m + 2 * r) % 10] for m in range(10)]
+        for c in (0, 1):
+            S = H = 0
+            for m in range(10):
+                i = (c - m) % 10
+                fi = fits(2 * f[i] if i & 1 and m & 1 else f[i], 32)
+                S += fi * G[m]
+                if (m == 1 and c == 0) or (m >= 2 and 2 * r + m < 10):
+                    H += fi * G[m]
+            t[r, c] = fits(fits(S, 64) + 18 * fits(H, 64), 64)
+    out = [0] * 10
+    k19 = [19, 1, 1, 1, 1]
+    prev = [4, 0, 1, 2, 3]          # the owner a carry comes from
+    c0 = {r: (t[r, 0] + (1 << 25)) >> 26 for r in range(5)}
+    c1 = {r: (t[r, 1] + (1 << 24)) >> 25 for r in range(5)}
+    a0 = {r: fits(t[r, 0] - (c0[r] << 26), 32) + c1[prev[r]] * k19[r]
+          for r in range(5)}
+    a1 = {r: fits(t[r, 1] - (c1[r] << 25), 32) + c0[r] for r in range(5)}
+    d0 = {r: fits((a0[r] + (1 << 25)) >> 26, 32) for r in range(5)}
+    d1 = {r: fits((a1[r] + (1 << 24)) >> 25, 32) for r in range(5)}
+    b0 = {r: fits(fits(a0[r] - (d0[r] << 26), 32)
+                  + d1[prev[r]] * k19[r], 32) for r in range(5)}
+    b1 = {r: fits(fits(a1[r] - (d1[r] << 25), 32) + d0[r], 32)
+          for r in range(5)}
+    for r in range(5):
+        e0, e1, ein = ((b0[r] + (1 << 25)) >> 26, (b1[r] + (1 << 24)) >> 25,
+                       (b1[prev[r]] + (1 << 24)) >> 25)
+        out[2 * r] = fits(b0[r] - (e0 << 26) + ein * k19[r], 32)
+        out[2 * r + 1] = fits(b1[r] - (e1 << 25) + e0, 32)
+    return out
+
+
+def test_limb_parallel_product_plan_equals_mul():
+    """gamma8's limb-parallel product (five owners of two columns, g
+    rotated by the owner's base, wrapped terms summed apart, carries
+    narrowed to 32 bits after round 1) gives mul's limbs exactly, at the
+    limb bound mul accepts and on random carried and uncarried limbs."""
+    bound = (1 << 27) + (1 << 10)
+    cols = [[bound] * 10, [-bound] * 10,
+            [bound if k % 2 else -bound for k in range(10)]]
+    cols += [[int(RNG.choice((-bound, bound))) for _ in range(10)]
+             for _ in range(20)]
+    cols += RNG.integers(-bound, bound + 1, (40, 10)).tolist()
+    cols += F.pack(_rand(40)).T.tolist()
+    f = torch.tensor(cols, dtype=torch.int64).T.contiguous()
+    g = f.roll(1, dims=1)
+    want = torch.cat([F.mul(f, g), F.sqr(f)], dim=1).T.tolist()
+    got = [_lp_mul_plan(a, b) for a, b in zip(f.T.tolist(), g.T.tolist())]
+    got += [_lp_mul_plan(a, a) for a in f.T.tolist()]
+    assert got == want
+
+
 def test_pow_chains_match_python_ints():
     xs = [0, 1, P - 1, 2, 9] + _rand(6)
     a = F.pack(xs)
