@@ -7,11 +7,11 @@ Run from the repository root on a machine with one NVIDIA Hopper card and
 the CUDA toolkit.  Phases:
 
 1. the card (name and power limit from nvidia-smi) and the build of the
-   eight CUDA kernels from ouroboros_tpu_torch/csrc/;
+   nine CUDA kernels from ouroboros_tpu_torch/csrc/;
 2. each kernel against its plain PyTorch version on the card, at the
    main path's lane counts (Ed25519 4096, VRF 2048, betas 2048, KES jobs
    8192; the full Ed25519 verify on the same 4096 requests with A-side
-   tampers added; the three chain kernels on the field microbenchmark's
+   tampers added; the four chain kernels on the field microbenchmark's
    4096 lanes at the longer chain of mul and of dbl) with tampered
    lanes, compared exactly; ed25519_split, vrf_verify, gamma8 and
    ed25519_verify (several threads a lane) again on the first n - 3 of
@@ -38,15 +38,16 @@ the CUDA toolkit.  Phases:
    and 2048 VRF lanes (split and full Ed25519 verify, VRF verify, betas;
    each row asserts that every lane verifies), where ed25519_verify and
    the three kernels the probe drives must launch;
-6. the field microbenchmark path: field_chain, point_chain and
-   point_chain_x4 each held exactly against its plain version on the card
-   for every operation at both of its chain lengths, at every lane count
-   the microbenchmark runs (4096, the JAX script's, and 65536) and on the
-   first n - 3 of each, and 16 lanes of each chain against Python
-   integers (edwards.py's formulas mod p); then `microbench_field --ops
+6. the field microbenchmark path: field_chain, field_chain_lp (mul and
+   sqr), point_chain and point_chain_x4 each held exactly against its
+   plain version on the card for every operation at both of its chain
+   lengths, at every lane count the microbenchmark runs (4096, the JAX
+   script's, and 65536) and on the first n - 3 of each, and 16 lanes of
+   each chain against Python integers (edwards.py's formulas mod p);
+   then `microbench_field --ops
    --e2e` at 4096 lanes (one warp an SM for the one-thread kernels) and
-   `--ops` at 65536 (sixteen), where each of the three must launch; last,
-   each of the eight kernels' own device time from torch.profiler
+   `--ops` at 65536 (sixteen), where each of the four must launch; last,
+   each of the nine kernels' own device time from torch.profiler
    (`device_ms`, median of 7 after two warm-ups), after every path whose
    rate is measured, so that no profiling runs before them.  Every
    per-operation time and device_ms must come from a profiler trace that
@@ -81,11 +82,9 @@ TAMPERS = {3: (517, "tamper_witness", "FIRST_WITNESS"),
            5: (700, "tamper_kes_node", "KES_SIG")}
 RUNS = 3                     # back-to-back runs of the main path
 SAMPLE = 16                  # blocks per window held against the CPU refs
-# H100 SXM: HBM3 at 3.35 TB/s (NVIDIA data sheet); 64 results per clock
-# per SM for 32-bit integer add, logic, shift and multiply-add at compute
-# capability 9.0 (CUDA C++ Programming Guide, arithmetic instructions)
+# H100 SXM: HBM3 at 3.35 TB/s (NVIDIA data sheet); the integer rate is
+# microbench_field.int_rate's
 HBM_BYTES_PER_S = 3.35e12
-INT32_PER_CLOCK_PER_SM = 64
 # blake2b compression: 12 rounds x 8 mixes of six 64-bit adds, four xors
 # and three non-trivial rotations, each two 32-bit operations, plus the
 # digest xors and the compare
@@ -178,9 +177,8 @@ def main() -> int:
                     "stack frame" in line and "bytes spill" in line:
                 log("  " + line.strip())
     dev = torch.device("cuda")
-    props = torch.cuda.get_device_properties(0)
-    clock_hz = float(smi("clocks.max.sm").split()[0]) * 1e6
-    int_rate = props.multi_processor_count * INT32_PER_CLOCK_PER_SM * clock_hz
+    int_rate = microbench_field.int_rate(
+        dev, float(smi("clocks.max.sm").split()[0]))
 
     # -- data ---------------------------------------------------------------
     workers = os.cpu_count() or 1
@@ -331,7 +329,7 @@ def main() -> int:
         if name == "kes_hash":
             ops = n * KES_INT_OPS
         elif name in chains:
-            ops = n * args[3] * microbench_field.OPS_PER_STEP[args[2]]
+            ops = microbench_field.int_ops(args[2], args[3], n)
         else:
             one = [a[..., :1].cpu() for a in args]
             F.COUNTS.update(mul=0, sqr=0)

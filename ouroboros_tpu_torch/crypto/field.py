@@ -283,6 +283,9 @@ def pow_chi(z):
 
 # the `field_chain` kernel's operations, in the order of its `op` argument
 FIELD_OPS = ("mul", "sqr", "add", "carry")
+# those of `field_chain_lp` (the limb-parallel product): mul and sqr, at
+# the same indices
+FIELD_LP_OPS = FIELD_OPS[:2]
 
 
 def field_chain_core(a: torch.Tensor, b: torch.Tensor, op: str,

@@ -5,12 +5,12 @@ in CUDA C++ under `../csrc/`: the five of
 `ouroboros_tpu/crypto/pallas_kernels.py` (four on the validation window's
 path, and the full 256-bit Ed25519 verify of the standalone batch API),
 and the field-op and point-op chains of `experiments/microbench_field.py`
-(`field_chain`, and `point_chain` / `point_chain_x4` for the port's two
-point-op forms).  They are compiled with nvcc for sm_90a into one shared
-library with a plain C interface, loaded with ctypes.  The build runs at
-first use, into `ouroboros_tpu_torch/build/` (one nvcc per source, all
-started together, then one link), keyed by a hash of the sources and
-flags.
+(`field_chain` / `field_chain_lp` for the port's two field products,
+`point_chain` / `point_chain_x4` for its two point-op forms).  They are
+compiled with nvcc for sm_90a into one shared library with a plain C
+interface, loaded with ctypes.  The build runs at first use, into
+`ouroboros_tpu_torch/build/` (one nvcc per source, all started
+together, then one link), keyed by a hash of the sources and flags.
 
 Each verify wrapper takes packed (8, N) uint32 words: the JAX call's
 layout for the four window kernels, and for `ed25519_verify` the words of
@@ -20,8 +20,9 @@ and bit rows.  It returns the JAX output layout.  The chain wrappers take
 script's inputs), an operation name and a count.  `ed25519_split`,
 `ed25519_verify` and `point_chain_x4` run four threads a lane and
 `vrf_verify` eight (`csrc/ge25519_x4.cuh`: one thread a point
-coordinate); `gamma8` runs eight, each field product spread over them
-(`csrc/fe25519_lp.cuh`); the others run one thread a lane.
+coordinate); `gamma8` and `field_chain_lp` run eight, each field product
+spread over them (`csrc/fe25519_lp.cuh`); the others run one thread a
+lane.
 
 On a CPU tensor a wrapper runs the kernel's plain PyTorch version (named
 in `KERNELS`); on a CUDA tensor it launches the kernel on the current
@@ -91,6 +92,10 @@ KERNELS = {k.name: k for k in (
            "ouroboros_tpu_torch/csrc/field_chain.cu",
            "experiments/microbench_field.py:160",
            F.field_chain_core, 1, 32),
+    Kernel("field_chain_lp", "ouro_field_chain_lp",
+           "ouroboros_tpu_torch/csrc/field_chain.cu",
+           "experiments/microbench_field.py:160",
+           F.field_chain_core, 8, 64),
     Kernel("point_chain", "ouro_point_chain",
            "ouroboros_tpu_torch/csrc/point_chain.cu",
            "experiments/microbench_field.py:186",
@@ -118,12 +123,12 @@ _lib_lock = threading.Lock()
 BUILD_LOG: list[str] = []      # nvcc's output (-Xptxas -v: registers, spills)
 
 
-def _sources() -> tuple[list[str], str]:
-    files = sorted(f for f in os.listdir(CSRC) if f.endswith((".cu", ".cuh")))
+def _sources(csrc: str) -> tuple[list[str], str]:
+    files = sorted(f for f in os.listdir(csrc) if f.endswith((".cu", ".cuh")))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for f in files:
         h.update(f.encode())
-        with open(os.path.join(CSRC, f), "rb") as fh:
+        with open(os.path.join(csrc, f), "rb") as fh:
             h.update(fh.read())
     return [f for f in files if f.endswith(".cu")], h.hexdigest()[:16]
 
@@ -136,24 +141,25 @@ def _nvcc() -> str:
     return path
 
 
-def build() -> str:
-    """Compile ../csrc/*.cu into the shared library (once per source
-    hash) and return its path."""
-    cu_files, key = _sources()
-    lib_path = os.path.join(BUILD_DIR, f"libouro_kernels_{key}.so")
+def build(csrc: str = CSRC, build_dir: str = BUILD_DIR) -> str:
+    """Compile csrc/*.cu (../csrc unless another copy is given) into the
+    shared library under build_dir (once per source hash) and return its
+    path."""
+    cu_files, key = _sources(csrc)
+    lib_path = os.path.join(build_dir, f"libouro_kernels_{key}.so")
     if os.path.exists(lib_path):
         return lib_path
     nvcc = _nvcc()
     # objects go to a directory of this process's own, so two processes
     # building the same sources never link each other's half-written files;
     # the library itself appears atomically (os.replace)
-    obj_dir = os.path.join(BUILD_DIR, f"{key}.{os.getpid()}")
+    obj_dir = os.path.join(build_dir, f"{key}.{os.getpid()}")
     os.makedirs(obj_dir, exist_ok=True)
     procs = []
     for f in cu_files:
         obj = os.path.join(obj_dir, f[:-3] + ".o")
         procs.append((f, obj, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", os.path.join(CSRC, f), "-o", obj],
+            [nvcc, *NVCC_FLAGS, "-c", os.path.join(csrc, f), "-o", obj],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = []
     for f, _obj, p in procs:
@@ -175,25 +181,42 @@ def build() -> str:
     return lib_path
 
 
+# every entry point takes its tensors' pointers (inputs, then the output),
+# its int arguments, then (int n, stream)
+ENTRY_ARGS = {"ouro_ed25519_split": (9, 0), "ouro_vrf_verify": (8, 0),
+              "ouro_gamma8": (3, 0), "ouro_kes_hash": (3, 0),
+              "ouro_ed25519_verify": (7, 0),
+              "ouro_field_chain": (3, 2),     # op, k
+              "ouro_field_chain_lp": (3, 2),  # op, k
+              "ouro_point_chain": (3, 2),     # kind, k
+              "ouro_point_chain_x4": (3, 2)}  # kind, k
+
+
+def bind(lib: ctypes.CDLL) -> list[str]:
+    """Set the argument types of the entry points `lib` exports; returns
+    the names of the kernels it serves."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    have = set()
+    for sym, (n_ptr, n_int) in ENTRY_ARGS.items():
+        try:
+            fn = getattr(lib, sym)
+        except AttributeError:
+            continue
+        fn.argtypes = [p] * n_ptr + [i] * n_int + [i, p]
+        fn.restype = ctypes.c_int
+        have.add(sym)
+    return [k.name for k in KERNELS.values() if k.symbol in have]
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built at first use."""
     global _lib
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
-            p, i = ctypes.c_void_p, ctypes.c_int
-            # every entry point takes its tensors' pointers (inputs, then
-            # the output), its int arguments, then (int n, stream)
-            argc = {"ouro_ed25519_split": (9, 0), "ouro_vrf_verify": (8, 0),
-                    "ouro_gamma8": (3, 0), "ouro_kes_hash": (3, 0),
-                    "ouro_ed25519_verify": (7, 0),
-                    "ouro_field_chain": (3, 2),     # op, k
-                    "ouro_point_chain": (3, 2),     # kind, k
-                    "ouro_point_chain_x4": (3, 2)}  # kind, k
-            for sym, (n_ptr, n_int) in argc.items():
-                fn = getattr(lib, sym)
-                fn.argtypes = [p] * n_ptr + [i] * n_int + [i, p]
-                fn.restype = ctypes.c_int
+            missing = set(KERNELS) - set(bind(lib))
+            if missing:
+                raise RuntimeError(f"kernel library lacks {sorted(missing)}")
             _lib = lib
     return _lib
 
@@ -317,6 +340,14 @@ def field_chain(a, b, op: str, k: int):
     k times, op one of field.FIELD_OPS.  (10, N) int32 carried limbs x2
     -> (10, N) int32."""
     return _chain("field_chain", F.FIELD_OPS, a, b, op, k)
+
+
+def field_chain_lp(a, b, op: str, k: int):
+    """`field_chain` on eight threads a lane, each product spread over
+    them (csrc/fe25519_lp.cuh, gamma8's product); op one of
+    field.FIELD_LP_OPS (mul, sqr).  The same function and plain
+    version."""
+    return _chain("field_chain_lp", F.FIELD_LP_OPS, a, b, op, k)
 
 
 def point_chain(a, b, kind: str, k: int):

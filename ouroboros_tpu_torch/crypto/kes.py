@@ -144,10 +144,13 @@ def hash_path_key(depth: int, vk: bytes, period: int, sig_bytes: bytes):
     the signed message — so a pool's per-period subtree check has one
     answer for every header it signs in that period.  The cross-window
     precomputation cache (crypto/precompute.py) memoises outcomes under
-    this key.  Returns None when the signature is structurally invalid
-    (wrong length / period out of range), which callers reject directly.
+    this key.  Returns None when the request is structurally invalid
+    (a root key that is not 32 bytes, a wrong signature length, a period
+    out of range), which callers reject directly: no Blake2b digest
+    equals a short or long key, and such a key must neither schedule a
+    job nor read or write a cache entry.
     """
-    if not 0 <= period < total_periods(depth):
+    if len(vk) != 32 or not 0 <= period < total_periods(depth):
         return None
     if len(sig_bytes) != 64 + depth * 64:
         return None

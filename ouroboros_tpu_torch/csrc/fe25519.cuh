@@ -11,6 +11,25 @@
 // 32x32->64 multiply-adds of the schoolbook form (IMAD.WIDE on Hopper),
 // summed exactly in int64, then three parallel carry rounds.
 //
+// The carry rounds are field.carry_round's integers, computed narrow: only
+// round 1's carry needs 64 bits (|column| < 2^62.8, so |carry| < 2^38).
+// Every other value fits 32 bits: a round-1 remainder is the low W bits
+// of the column, round 2's carries stay below 2^17, and round 3 runs in
+// 32 bits throughout (tests/test_torch_field.py models this plan in
+// Python ints and checks every width at the limb bound).  Each column
+// starts at 2^(W-1), the round's rounding offset, so that a round's carry
+// is a plain shift and its remainder (plus the offset) a mask, and the
+// next round's offset is already in that remainder.  So a product is its
+// 100 (55 for a square) multiply-adds, 10 folds of the wrapped sum times
+// 19 and about 11 operations a limb of carries: 250 SASS instructions for
+// fe_mul on sm_90a, 110 of them IMAD.WIDE, where the 64-bit rounds made
+// 332 (a square: 237 in fe_sq_n's loop, 295 before).
+//
+// fe_mul_i / fe_sq_i are the product inline; fe_mul / fe_sq the same as a
+// call (__noinline__), which the large kernels take to keep their builds
+// and registers small.  fe_sq_n is a call holding a loop of inline
+// squares: most squares of a kernel are in those runs.
+//
 // Invariants (as in field.py): mul/sqr return "carried" limbs
 // (|limb k| <= 2^(W[k]-1) + 2^8) and accept sums of up to four carried
 // elements; add/sub do not carry.
@@ -24,6 +43,9 @@ struct fe {
 // limb width and bit offset: 26, 25, 26, ... and 0, 26, 51, 77, ... 230
 #define FE_W(k) (((k) & 1) ? 25 : 26)
 #define FE_OFF(k) (((k) * 51 + 1) / 2)
+// a carry round's rounding offset and remainder mask for limb k
+#define FE_HALF(k) (1 << (FE_W(k) - 1))
+#define FE_MASK(k) ((1 << FE_W(k)) - 1)
 
 // constants as carried limbs (field.balanced_limbs of each value; the
 // CPU tests check every line of this table against edwards.py)
@@ -146,53 +168,73 @@ __device__ __forceinline__ fe fe_sel(bool c, const fe &a, const fe &b) {
     return h;
 }
 
-// one parallel carry round (field.carry_round): limb k keeps its low W[k]
-// bits rounded to [-2^(W-1), 2^(W-1)); limb 9's carry re-enters limb 0
-// times 19
-__device__ __forceinline__ void carry_round64(int64_t t[10]) {
-    int64_t c[10];
+// one parallel carry round (field.carry_round) in 32 bits, exact on any
+// int32 limbs: limb k keeps its low W[k] bits rounded to [-2^(W-1),
+// 2^(W-1)); limb 9's carry re-enters limb 0 times 19.  The carry
+// floor((f + 2^(W-1)) / 2^W) is f >> W plus bit W-1 of f, so no sum
+// can overflow.
+__device__ __forceinline__ fe fe_carry(const fe &f) {
+    int32_t c[10], r[10];
 #pragma unroll
     for (int k = 0; k < 10; k++) {
-        c[k] = (t[k] + (int64_t(1) << (FE_W(k) - 1))) >> FE_W(k);
-        t[k] -= c[k] * (int64_t(1) << FE_W(k));
+        c[k] = (f.v[k] >> FE_W(k)) + ((f.v[k] >> (FE_W(k) - 1)) & 1);
+        r[k] = (int32_t)((uint32_t)f.v[k] - ((uint32_t)c[k] << FE_W(k)));
     }
-    t[0] += 19 * c[9];
-#pragma unroll
-    for (int k = 1; k < 10; k++) t[k] += c[k - 1];
-}
-
-__device__ __forceinline__ fe fe_carry(const fe &f) {
-    int64_t t[10];
-#pragma unroll
-    for (int i = 0; i < 10; i++) t[i] = f.v[i];
-    carry_round64(t);
     fe h;
+    h.v[0] = r[0] + 19 * c[9];
 #pragma unroll
-    for (int i = 0; i < 10; i++) h.v[i] = (int32_t)t[i];
+    for (int k = 1; k < 10; k++) h.v[k] = r[k] + c[k - 1];
     return h;
 }
 
-__device__ __forceinline__ fe fe_finish_product(const int64_t lo[10],
-                                                const int64_t hi[10]) {
-    int64_t t[10];
+// three carry rounds of the columns s[k] = t[k] + 2^(W[k]-1) (t the
+// product's columns, wrapped terms already times 19).  Round r's rounded
+// carry of its input a is (a + 2^(W-1)) >> W and its remainder that sum's
+// low W bits less 2^(W-1); the offset is carried in the remainders, so
+// each round's input plus its offset is the last remainder plus the
+// carry from below: u = v + c.
+__device__ __forceinline__ fe fe_finish_product(const int64_t s[10]) {
+    // round 1: carries up to 2^38 in 64 bits; remainders from the low word
+    int64_t c[10];
+    int32_t v[10];
 #pragma unroll
-    for (int k = 0; k < 10; k++) t[k] = lo[k] + 19 * hi[k];
-    carry_round64(t);
-    carry_round64(t);
-    carry_round64(t);
+    for (int k = 0; k < 10; k++) {
+        c[k] = s[k] >> FE_W(k);
+        v[k] = (int32_t)((uint32_t)s[k] & FE_MASK(k));
+    }
+    // round 2: u = v + c below 2^43; its carry below 2^17 fits 32 bits
+    int32_t d[10], w[10];
+#pragma unroll
+    for (int k = 0; k < 10; k++) {
+        const int64_t u = v[k] + (k == 0 ? 19 * c[9] : c[k - 1]);
+        d[k] = (int32_t)(u >> FE_W(k));
+        w[k] = (int32_t)((uint32_t)u & FE_MASK(k));
+    }
+    // round 3, all in 32 bits
+    int32_t e[10], y[10];
+#pragma unroll
+    for (int k = 0; k < 10; k++) {
+        const int32_t x = w[k] + (k == 0 ? 19 * d[9] : d[k - 1]);
+        e[k] = x >> FE_W(k);
+        y[k] = x & FE_MASK(k);
+    }
     fe h;
 #pragma unroll
-    for (int k = 0; k < 10; k++) h.v[k] = (int32_t)t[k];
+    for (int k = 0; k < 10; k++)
+        h.v[k] = y[k] - FE_HALF(k) + (k == 0 ? 19 * e[9] : e[k - 1]);
     return h;
 }
 
 // h = f * g.  Term f_i g_j lands in limb (i + j) mod 10, doubled when i
 // and j are both odd, times 19 when i + j >= 10; the wrapped terms are
 // summed apart (hi) so each partial sum stays below 2^58.4.
-static __device__ __noinline__ fe fe_mul(const fe f, const fe g) {
+__device__ __forceinline__ fe fe_mul_i(const fe &f, const fe &g) {
     int64_t lo[10], hi[10];
 #pragma unroll
-    for (int k = 0; k < 10; k++) lo[k] = hi[k] = 0;
+    for (int k = 0; k < 10; k++) {
+        lo[k] = FE_HALF(k);
+        hi[k] = 0;
+    }
 #pragma unroll
     for (int i = 0; i < 10; i++) {
         const int32_t fi = f.v[i];
@@ -207,14 +249,19 @@ static __device__ __noinline__ fe fe_mul(const fe f, const fe g) {
                 hi[i + j - 10] += p;
         }
     }
-    return fe_finish_product(lo, hi);
+#pragma unroll
+    for (int k = 0; k < 10; k++) lo[k] += 19 * hi[k];
+    return fe_finish_product(lo);
 }
 
 // h = f^2: the 55 distinct products of the same sum
-static __device__ __noinline__ fe fe_sq(const fe f) {
+__device__ __forceinline__ fe fe_sq_i(const fe &f) {
     int64_t lo[10], hi[10];
 #pragma unroll
-    for (int k = 0; k < 10; k++) lo[k] = hi[k] = 0;
+    for (int k = 0; k < 10; k++) {
+        lo[k] = FE_HALF(k);
+        hi[k] = 0;
+    }
 #pragma unroll
     for (int i = 0; i < 10; i++) {
 #pragma unroll
@@ -227,8 +274,16 @@ static __device__ __noinline__ fe fe_sq(const fe f) {
                 hi[i + j - 10] += p;
         }
     }
-    return fe_finish_product(lo, hi);
+#pragma unroll
+    for (int k = 0; k < 10; k++) lo[k] += 19 * hi[k];
+    return fe_finish_product(lo);
 }
+
+static __device__ __noinline__ fe fe_mul(const fe f, const fe g) {
+    return fe_mul_i(f, g);
+}
+
+static __device__ __noinline__ fe fe_sq(const fe f) { return fe_sq_i(f); }
 
 // exact floor carry from limb 0 up to limb 9 (limb 9 keeps its excess)
 __device__ __forceinline__ void seq_carry64(int64_t t[10]) {
@@ -245,9 +300,9 @@ __device__ __forceinline__ void seq_carry64(int64_t t[10]) {
 // conditional subtraction of p (v >= p iff v + 19 reaches bit 255)
 __device__ __forceinline__ fe fe_canon(const fe &f) {
     int64_t d[10], t[10];
+    const fe r = fe_carry(f);
 #pragma unroll
-    for (int k = 0; k < 10; k++) d[k] = f.v[k];
-    carry_round64(d);
+    for (int k = 0; k < 10; k++) d[k] = r.v[k];
     d[0] += (int64_t(1) << 26) - 19;
 #pragma unroll
     for (int k = 1; k < 10; k++) d[k] += (int64_t(1) << FE_W(k)) - 1;
@@ -322,8 +377,9 @@ __device__ __forceinline__ void fe_bytes(uint8_t out[32], const fe &c) {
     }
 }
 
-__device__ __forceinline__ fe fe_sq_n(fe x, int n) {
-    for (int i = 0; i < n; i++) x = fe_sq(x);
+// x^(2^n)
+static __device__ __noinline__ fe fe_sq_n(fe x, int n) {
+    for (int i = 0; i < n; i++) x = fe_sq_i(x);
     return x;
 }
 

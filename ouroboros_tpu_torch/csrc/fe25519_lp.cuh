@@ -22,7 +22,7 @@
 // the whole column S = lo + hi, and t = S + 18 H = lo + 19 hi.  Integer sums
 // are exact in any order, so t is fe_mul's column to the bit (each partial
 // sum below 2^58.4, |t| below 2^62.8), and the three carry rounds are
-// carry_round64's, one shuffle a round: a first-round carry reaches 2^38
+// field.carry_round's, one shuffle a round: a first-round carry reaches 2^38
 // and moves as 64 bits, later ones stay below 2^17 and move as 32, and
 // every limb after round 1 is computed in 32 bits.  So lp_mul returns
 // fe_mul's limbs exactly, on any input fe_mul takes (sums of up to four
@@ -117,7 +117,7 @@ __device__ __forceinline__ fd lp_mul_i(const fd f, const fd g) {
         }
         t[c] = S + 18 * H;
     }
-    // carry_round64 three times: limb 2r takes the carry of limb 2r - 1
+    // field.carry_round three times: limb 2r takes the carry of limb 2r - 1
     // from the owner before it, limb 0 19 times limb 9's; a residue below
     // 2^26 is the low 32 bits of the difference
     const int src = r == 0 ? LP_OWNERS - 1 : r - 1;

@@ -20,7 +20,9 @@ struct ge_const_pt {
     ge_const_pt { stem##_X, stem##_Y, stem##_XY, stem##_YMX, stem##_YPX,    \
                   stem##_T2D }
 
-// ed25519.pt_add
+// ed25519.pt_add.  Its products are calls: inline, the nine of them took
+// point_chain to 255 registers and its addition to 1.3x the time of the
+// calls on the H100 (csrc_compare, PERF.md).
 __device__ __forceinline__ ge ge_add(const ge &p, const ge &q) {
     const fe A = fe_mul(fe_sub(p.Y, p.X), fe_sub(q.Y, q.X));
     const fe B = fe_mul(fe_add(p.Y, p.X), fe_add(q.Y, q.X));
@@ -33,18 +35,22 @@ __device__ __forceinline__ ge ge_add(const ge &p, const ge &q) {
     return ge{fe_mul(E, F), fe_mul(G, H), fe_mul(F, G), fe_mul(E, H)};
 }
 
-// ed25519.pt_double
+// ed25519.pt_double.  Its products are inline, so that nvcc interleaves
+// the four squares and the four products (a lone warp on an SM waits out
+// part of each product's latency otherwise): 0.87x the time of product
+// calls at one warp an SM, 0.93x at sixteen, at 168 registers.
 __device__ __forceinline__ ge ge_dbl(const ge &p) {
-    const fe A = fe_sq(p.X);
-    const fe B = fe_sq(p.Y);
-    const fe ZZ = fe_sq(p.Z);
-    const fe XY2 = fe_sq(fe_add(p.X, p.Y));
+    const fe A = fe_sq_i(p.X);
+    const fe B = fe_sq_i(p.Y);
+    const fe ZZ = fe_sq_i(p.Z);
+    const fe XY2 = fe_sq_i(fe_add(p.X, p.Y));
     const fe C = fe_add(ZZ, ZZ);
     const fe H = fe_add(A, B);
     const fe E = fe_sub(H, XY2);
     const fe G = fe_sub(A, B);
     const fe F = fe_add(C, G);
-    return ge{fe_mul(E, F), fe_mul(G, H), fe_mul(F, G), fe_mul(E, H)};
+    return ge{fe_mul_i(E, F), fe_mul_i(G, H), fe_mul_i(F, G),
+              fe_mul_i(E, H)};
 }
 
 // ed25519.device_decompress (RFC 8032 §5.1.3): x with the requested

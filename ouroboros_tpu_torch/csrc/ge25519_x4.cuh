@@ -17,6 +17,14 @@
 // operands: only the thread that computes it changes, so the results stay
 // bit-exact, garbage lanes included.
 //
+// The three point ops are calls (__noinline__) with their products inline
+// (fe_mul_i / fe_sq_i): one call a point op, where a call a product moved
+// twenty limbs through the call ABI two or three times an op: 4.6-6.7 %
+// off ed25519_split, ed25519_verify and vrf_verify on the H100.  Inlining
+// the products into every call site instead took ed25519_split and
+// ed25519_verify to 255 registers with 100 and 88 bytes of spill, for
+// 2 % at most (csrc_compare, PERF.md).
+//
 // A cached point (ymx, ypx, z2, t2d) is held one column a slot too, in the
 // order of pt_add_cached's round-1 products: slot 0 ymx (times Y - X),
 // slot 1 ypx (times Y + X), slot 2 z2 (times Z, slot 2's own coordinate),
@@ -52,14 +60,14 @@ __device__ __forceinline__ fe fe_shfl(const fe &a, int src, int width) {
 // round 2 of all three formulas: (E F, G H, F G, E H) -> coordinate t
 __device__ __forceinline__ fe ge_round2_x4(int t, const fe &E, const fe &F,
                                            const fe &G, const fe &H) {
-    return fe_mul(fe_pick4(t, E, G, F, E), fe_pick4(t, F, H, G, H));
+    return fe_mul_i(fe_pick4(t, E, G, F, E), fe_pick4(t, F, H, G, H));
 }
 
 // ge_dbl: coordinate t of p -> coordinate t of 2p
-__device__ __forceinline__ fe ge_dbl_x4(int t, const fe &c) {
+static __device__ __noinline__ fe ge_dbl_x4(int t, const fe c) {
     const fe X = fe_shfl(c, 0, 4), Y = fe_shfl(c, 1, 4);
     // round 1: X^2, Y^2, Z^2, (X + Y)^2
-    const fe r = fe_sq(fe_sel(t == 3, fe_add(X, Y), c));
+    const fe r = fe_sq_i(fe_sel(t == 3, fe_add(X, Y), c));
     const fe A = fe_shfl(r, 0, 4), B = fe_shfl(r, 1, 4);
     const fe ZZ = fe_shfl(r, 2, 4), XY2 = fe_shfl(r, 3, 4);
     const fe C = fe_add(ZZ, ZZ);
@@ -71,11 +79,11 @@ __device__ __forceinline__ fe ge_dbl_x4(int t, const fe &c) {
 }
 
 // pt_add_cached: coordinate t of p, column t of q -> coordinate t of p + q
-__device__ __forceinline__ fe ge_add_cached_x4(int t, const fe &c,
-                                               const fe &q) {
+static __device__ __noinline__ fe ge_add_cached_x4(int t, const fe c,
+                                                  const fe q) {
     const fe X = fe_shfl(c, 0, 4), Y = fe_shfl(c, 1, 4);
     // round 1: (Y - X) ymx, (Y + X) ypx, Z z2, T t2d
-    const fe r = fe_mul(fe_pick4(t, fe_sub(Y, X), fe_add(Y, X), c, c), q);
+    const fe r = fe_mul_i(fe_pick4(t, fe_sub(Y, X), fe_add(Y, X), c, c), q);
     const fe A = fe_shfl(r, 0, 4), B = fe_shfl(r, 1, 4);
     const fe D = fe_shfl(r, 2, 4), C = fe_shfl(r, 3, 4);
     return ge_round2_x4(t, fe_sub(B, A), fe_sub(D, C), fe_add(D, C),
@@ -83,15 +91,15 @@ __device__ __forceinline__ fe ge_add_cached_x4(int t, const fe &c,
 }
 
 // ge_add: coordinate t of p and of q -> coordinate t of p + q
-__device__ __forceinline__ fe ge_add_x4(int t, const fe &c, const fe &d) {
+static __device__ __noinline__ fe ge_add_x4(int t, const fe c, const fe d) {
     const fe X1 = fe_shfl(c, 0, 4), Y1 = fe_shfl(c, 1, 4);
     const fe X2 = fe_shfl(d, 0, 4), Y2 = fe_shfl(d, 1, 4);
     // round 1: (Y1 - X1)(Y2 - X2), (Y1 + X1)(Y2 + X2), Z1 Z2, T1 T2
-    const fe r = fe_mul(fe_pick4(t, fe_sub(Y1, X1), fe_add(Y1, X1), c, c),
-                        fe_pick4(t, fe_sub(Y2, X2), fe_add(Y2, X2), d, d));
+    const fe r = fe_mul_i(fe_pick4(t, fe_sub(Y1, X1), fe_add(Y1, X1), c, c),
+                          fe_pick4(t, fe_sub(Y2, X2), fe_add(Y2, X2), d, d));
     const fe A = fe_shfl(r, 0, 4), B = fe_shfl(r, 1, 4);
     const fe ZZ = fe_shfl(r, 2, 4), TT = fe_shfl(r, 3, 4);
-    const fe C = fe_mul(TT, fe_load(K_D2));
+    const fe C = fe_mul_i(TT, fe_load(K_D2));
     const fe D = fe_add(ZZ, ZZ);
     return ge_round2_x4(t, fe_sub(B, A), fe_sub(D, C), fe_add(D, C),
                         fe_add(B, A));

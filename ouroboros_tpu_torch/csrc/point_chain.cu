@@ -1,5 +1,5 @@
 // k point operations a lane: the per-operation probe of both point-op
-// implementations the kernels run.
+// implementations of the port.
 //
 // Replaces the TPU kernel make_pt_chain.<locals>.kernel of
 // experiments/microbench_field.py:186 (its pallas_call at :200): from
@@ -10,21 +10,26 @@
 // ouroboros_tpu_torch/crypto/ed25519.py:point_chain_core.
 //
 // Two launchers, one for each point-op form of the port:
-// - ouro_point_chain: one thread a lane, ge_dbl / ge_add of ge25519.cuh, as
-//   gamma8 and ed25519_verify run them, in blocks of OURO_BLOCK (32);
+// - ouro_point_chain: one thread a lane, ge_dbl / ge_add of ge25519.cuh,
+//   in blocks of OURO_BLOCK (32);
 // - ouro_point_chain_x4: four threads a lane, one a coordinate, ge_dbl_x4 /
-//   ge_add_x4 of ge25519_x4.cuh, as ed25519_split and vrf_verify run them,
-//   in blocks of X4_BLOCK (64).  The four slots' coordinates meet in slot 0
-//   by __shfl_sync of width 4 for the sum.  Lanes past n run lane n - 1's
-//   inputs and skip only the store: every thread reaches every shuffle.
+//   ge_add_x4 of ge25519_x4.cuh, as ed25519_split, ed25519_verify and
+//   vrf_verify run them, in blocks of X4_BLOCK (64).  The four slots'
+//   coordinates meet in slot 0 by __shfl_sync of width 4 for the sum.
+//   Lanes past n run lane n - 1's inputs and skip only the store: every
+//   thread reaches every shuffle.
 // Every field operation is the plain version's on the same operands, so
 // both launchers equal it limb for limb.
 //
 // Bound on this card: operations.  A lane reads 80 bytes and writes 40; a
 // dbl is 4 squares and 4 products (4 x 55 + 4 x 100 multiply-adds), an
-// addc 9 products (900).  Design: kind and k are runtime arguments, as in
-// field_chain.cu; at 4096 lanes the one-thread form is one warp an SM and
-// the four-thread form four, one a scheduler.
+// addc 9 products (900).  Design: fe25519.cuh's products carry in 32 bits
+// after round 1; ge_dbl's eight products are inline, so that nvcc
+// interleaves the independent ones, while ge_add keeps product calls
+// (inline, its nine took the kernel to 255 registers and ran slower); a
+// four-thread op is one call with its products inline.  kind and k are
+// runtime arguments, as in field_chain.cu; at 4096 lanes the one-thread
+// form is one warp an SM and the four-thread form four, one a scheduler.
 #include <cuda_runtime.h>
 
 #include "ge25519_x4.cuh"

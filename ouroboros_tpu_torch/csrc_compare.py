@@ -1,0 +1,232 @@
+"""Build copies of the kernel sources side by side and compare them on the
+card: the instrument for a design choice inside csrc/ (a carry plan, which
+call sites inline a product).
+
+    python -m ouroboros_tpu_torch.csrc_compare DIR [DIR ...]
+        [--lanes 4096,65536] [--reps 7] [--sass OUTDIR]
+
+Each DIR holds a full copy of ouroboros_tpu_torch/csrc/, edited.  For
+each, in one process on one card: the build (`kernels.build`, one nvcc a
+source) with each kernel's registers and spills (`-Xptxas -v`); every
+kernel the copy exports against its plain version on 96 and 97 lanes of
+random words or limbs, and the chain kernels on uncarried limbs at the
+products' bound, compared exactly (a copy that disagrees is reported and
+not timed); the device time of each window kernel at the main path's
+lane counts on random words; and µs per batched operation of every
+chain at each lane count, as `microbench_field --ops` takes them.  The
+first DIR runs again last, so that drift over the run shows.  A kernel
+that a copy does not export is skipped.  With --sass, `cuobjdump -sass`
+of each copy's library is written to OUTDIR/<name>.sass, and the
+instructions of the chain kernels are counted (`sass_counts`).  Needs
+the card and nvcc; the last line is a JSON object of every number.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import hashlib
+import json
+import os
+import re
+import subprocess
+
+import numpy as np
+import torch
+
+from . import device as D
+from . import microbench_field as MB
+from .crypto import blake2b as B2
+from .crypto import field as F
+from .crypto import kernels as K
+
+# the main path's lane counts (chip_smoke.py phase 2)
+WINDOW_LANES = {"ed25519_split": 4096, "vrf_verify": 2048, "gamma8": 2048,
+                "ed25519_verify": 4096, "kes_hash": 8192}
+CHAIN_OPS = {name: ops for name, ops, _k in MB.CHAINS}
+# |limb| the products accept: sums of four carried elements
+LIMB_BOUND = (1 << 27) + (1 << 10)
+# the SASS instruction classes counted apart
+SASS_CLASSES = ("IMAD.WIDE", "SHFL", "SEL")
+
+
+def sass_counts(text: str) -> dict:
+    """Instructions of each chain kernel of a `cuobjdump -sass` listing,
+    split at its CALL.REL targets: a __noinline__ callee is a subroutine
+    inside each kernel that calls it, from its target to the next one.
+    {kernel: [[start offset, instructions, {class: count}], ...]}, NOPs
+    left out."""
+    funcs, cur = {}, None
+    for ln in text.splitlines():
+        if "Function :" in ln:
+            m = re.search(r"Function : \S*?(\w+_chain\w*_kernel)", ln)
+            cur = funcs.setdefault(m.group(1), []) if m else None
+            continue
+        m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([^;]+)",
+                     ln)
+        if m and cur is not None:
+            cur.append((int(m.group(1), 16), m.group(2)))
+    out = {}
+    for fn, ins in funcs.items():
+        calls = [re.search(r"CALL\.REL\.NOINC (0x[0-9a-f]+)", t)
+                 for _a, t in ins]
+        starts = sorted({0} | {int(c.group(1), 16) for c in calls if c})
+        parts = []
+        for a, b in zip(starts, starts[1:] + [1 << 40]):
+            ops = [t.split()[0] for addr, t in ins
+                   if a <= addr < b and not t.startswith("NOP")]
+            parts.append([a, len(ops), {c: sum(o.startswith(c) for o in ops)
+                                        for c in SASS_CLASSES}])
+        out[fn] = parts
+    return out
+
+
+def random_limbs(rng, dev, n: int) -> list[torch.Tensor]:
+    """Two (10, n) int32 carried limb arrays of random radix-2^13
+    digits."""
+    return [F.limbs_from_radix13(rng.integers(0, 8192, (20, n),
+                                              dtype=np.int32))
+            .to(torch.int32).to(dev) for _ in range(2)]
+
+
+def random_args(name: str, rng, dev, n: int) -> list:
+    """Random inputs of kernel `name` on n lanes: words (most off the
+    curve), signs, limbs, or Blake2b jobs a third of which do not match."""
+    def w(rows, clear_top=True):
+        a = rng.integers(0, 2**32, (rows, n), dtype=np.uint64)
+        a = a.astype(np.uint32)
+        if clear_top:
+            a[-1] &= 0x7FFFFFFF
+        return torch.from_numpy(a).to(dev)
+
+    def sign():
+        return torch.from_numpy(rng.integers(0, 2, n).astype(np.int32)
+                                ).to(dev)
+    if name == "ed25519_split":
+        return [w(8) for _ in range(5)] + [sign()] \
+            + [w(8, False) for _ in range(2)]
+    if name == "vrf_verify":
+        return [w(8) for _ in range(3)] + [sign(), w(8), w(4, False),
+                                           w(8, False)]
+    if name == "ed25519_verify":
+        return [w(8), sign(), w(8), sign(), w(8, False), w(8, False)]
+    if name == "gamma8":
+        return [w(8), sign()]
+    if name in CHAIN_OPS:
+        return random_limbs(rng, dev, n) + [CHAIN_OPS[name][-1], 5]
+    msgs = rng.integers(0, 256, (n, 64), dtype=np.uint8)
+    digs = np.stack([np.frombuffer(hashlib.blake2b(
+        m.tobytes(), digest_size=32).digest(), np.uint8) for m in msgs])
+    digs[::3, 0] ^= 1
+    return [torch.from_numpy(B2.msg_words(msgs)).to(dev),
+            torch.from_numpy(B2.digest_words(digs)).to(dev)]
+
+
+def _mismatches(names: list[str], dev) -> list[str]:
+    bad = []
+    for name in names:
+        for n in (96, 97):
+            args = random_args(name, np.random.default_rng(n), dev, n)
+            got = getattr(K, name)(*args)
+            if not torch.equal(got.cpu(),
+                               K.KERNELS[name].plain(*args).cpu()):
+                bad.append(f"{name} on {n} lanes")
+    rng = np.random.default_rng(27)
+    a, b = (torch.from_numpy(rng.integers(-LIMB_BOUND, LIMB_BOUND + 1,
+                                          (10, 4099)).astype(np.int32))
+            .to(dev) for _ in range(2))
+    for name in ("field_chain", "field_chain_lp"):
+        for op in CHAIN_OPS[name] if name in names else ():
+            got = getattr(K, name)(a, b, op, 9)
+            if not torch.equal(got.cpu(),
+                               F.field_chain_core(a, b, op, 9).cpu()):
+                bad.append(f"{name} {op} on uncarried limbs")
+    return bad
+
+
+def measure(so: str, dev, lanes: list[int], reps: int) -> dict:
+    """Check and time the kernels of one built library."""
+    lib = ctypes.CDLL(so)
+    names = K.bind(lib)
+    K._lib = lib
+    res = {"kernels": names, "mismatches": _mismatches(names, dev),
+           "device_ms": {}, "us_per_op": {}}
+    if res["mismatches"]:
+        return res
+    for name, n in WINDOW_LANES.items():
+        if name in names:
+            args = random_args(name, np.random.default_rng(1), dev, n)
+            res["device_ms"][name] = D.kernel_ms(
+                lambda: getattr(K, name)(*args), f"{name}_kernel", reps)[0]
+    for n in lanes:
+        a, b = MB.inputs(n, dev)
+        for name, ops, (k1, k2) in MB.CHAINS:
+            for op in ops if name in names else ():
+                t1, t2 = (D.kernel_ms(lambda: getattr(K, name)(a, b, op, k),
+                                      f"{name}_kernel", reps)[0]
+                          for k in (k1, k2))
+                res["us_per_op"][f"{name} {op} {n}"] = \
+                    (t2 - t1) / (k2 - k1) * 1e3
+    return res
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("dirs", nargs="+")
+    ap.add_argument("--lanes", default="4096,65536")
+    ap.add_argument("--reps", type=int, default=7)
+    ap.add_argument("--sass", default=None)
+    args = ap.parse_args(argv)
+    dev = D.resolve(None)
+    lanes = [int(x) for x in args.lanes.split(",")]
+    builds, sass = {}, {}
+    for d in args.dirs:
+        name = os.path.basename(os.path.normpath(d))
+        start = len(K.BUILD_LOG)
+        so = K.build(os.path.abspath(d),
+                     os.path.join(K.BUILD_DIR, "compare", name))
+        regs = [ln.strip() for entry in K.BUILD_LOG[start:]
+                for ln in entry.splitlines()
+                if ln.startswith("==") or "registers" in ln
+                or re.search(r"[1-9]\d* bytes spill stores", ln)]
+        builds[name] = so
+        print(f"[{name}] built: " + " | ".join(regs), flush=True)
+        if args.sass:
+            os.makedirs(args.sass, exist_ok=True)
+            text = subprocess.run(
+                [os.path.join(os.path.dirname(K._nvcc()), "cuobjdump"),
+                 "-sass", so], capture_output=True, text=True,
+                check=True).stdout
+            with open(os.path.join(args.sass, f"{name}.sass"), "w") as fh:
+                fh.write(text)
+            sass[name] = sass_counts(text)
+            for fn, parts in sorted(sass[name].items()):
+                print(f"[{name}] {fn}: " + "; ".join(
+                    f"@{a:#x} {n} (" + ", ".join(
+                        f"{c} {v}" for c, v in cl.items()) + ")"
+                    for a, n, cl in parts), flush=True)
+    order = list(builds) + list(builds)[:1]
+    out = {"device": D.device_kind(dev), "sass": sass, "runs": []}
+    try:
+        for name in order:
+            res = measure(builds[name], dev, lanes, args.reps)
+            out["runs"].append({"name": name, **res})
+            print(f"[{name}] " + (f"MISMATCH {res['mismatches']}"
+                                  if res["mismatches"] else "all exact"),
+                  flush=True)
+    finally:
+        K._lib = None
+    keys = sorted({k for r in out["runs"]
+                   for part in ("device_ms", "us_per_op") for k in r[part]})
+    print("device ms / us per op".ljust(32)
+          + "".join(r["name"].rjust(10) for r in out["runs"]))
+    for k in keys:
+        vals = [r["device_ms"].get(k, r["us_per_op"].get(k))
+                for r in out["runs"]]
+        print(k.ljust(32) + "".join(f"{v:10.4f}" if v is not None
+                                    else " " * 10 for v in vals))
+    print(json.dumps({"csrc_compare": out}), flush=True)
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -9,7 +9,8 @@ The port of `experiments/microbench_field.py`; with neither flag it runs
 `--e2e`, as that script does.
 
 `--ops` runs chains of k field operations a lane through the
-`field_chain` kernel (mul, sqr, add, carry at k = 64 and 192) and of k
+`field_chain` kernel (one thread a lane; mul, sqr, add, carry at k = 64
+and 192) and `field_chain_lp` (eight threads a lane; mul, sqr), and of k
 point operations through `point_chain` (one thread a lane) and
 `point_chain_x4` (four threads a lane) (dbl, addc at k = 32 and 96), on
 `--lanes` lanes of the JAX script's inputs: two (20, N) radix-2^13 limb
@@ -17,14 +18,14 @@ arrays from default_rng(0), carried across by value
 (`field.limbs_from_radix13`).  The cost of one batched operation is the
 difference of the two chains' times over the difference of their
 lengths, printed in microseconds and in cycles at the card's maximum SM
-clock (`nvidia-smi --query-gpu=clocks.max.sm`).  The field rows time
-`csrc/fe25519.cuh`'s one-thread product; `PRODUCTS`, printed first, says
-which kernels run it and that `gamma8` runs `csrc/fe25519_lp.cuh`'s
-limb-parallel product instead.  Times are device times: the chain
-kernel's duration from torch.profiler, median of `--reps`
-calls after two warm-ups (`device.kernel_ms`); a line says where the
-trace held more or fewer launches than calls, or where CUDA events had
-to stand in.  4096 lanes, the default, are the JAX shape and
+clock (`nvidia-smi --query-gpu=clocks.max.sm`), beside its bound: the
+32-bit operations of one batched operation (`OPS_PER_STEP` a lane) over
+the card's integer rate (`int_rate`).  `PRODUCTS`, printed first, says
+which kernels run the product each field row times.  Times are device
+times: the chain kernel's duration from torch.profiler, median of
+`--reps` calls after two warm-ups (`device.kernel_ms`); a line says
+where the trace held more or fewer launches than calls, or where CUDA
+events had to stand in.  4096 lanes, the default, are the JAX shape and
 one warp an SM for the one-thread kernels; 65536 lanes are sixteen.  A
 time per operation that stays flat from the one to the other is the
 latency of the chain; one that grows with the warps is issue.
@@ -67,21 +68,56 @@ FIELD_K = (64, 192)
 POINT_K = (32, 96)
 # kernel, its operations, the two chain lengths
 CHAINS = (("field_chain", F.FIELD_OPS, FIELD_K),
+          ("field_chain_lp", F.FIELD_LP_OPS, FIELD_K),
           ("point_chain", E.POINT_OPS, POINT_K),
           ("point_chain_x4", E.POINT_OPS, POINT_K))
 # 32-bit operations a lane does per chain step, the chains' bound: 100
-# multiply-adds a product and 55 a square; carry is carry_round64's 51
-# 64-bit adds, shifts, subtractions and multiply, two 32-bit operations
-# each; add is that plus fe_add's 10 adds (csrc/field_chain.cu)
-OPS_PER_STEP = {"mul": 100, "sqr": 55, "add": 10 + 102, "carry": 102,
+# multiply-adds a product and 55 a square; a carry round is 41 simple
+# operations (a limb's rounding offset added, the shift, the mask and the
+# carry in, and limb 9's carry times 19: csrc/fe25519.cuh's fe_carry);
+# add is that plus fe_add's 10 adds
+OPS_PER_STEP = {"mul": 100, "sqr": 55, "add": 10 + 41, "carry": 41,
                 "dbl": 4 * 55 + 4 * 100, "addc": 9 * 100}
+# operations whose count is multiply-adds; the others are simple adds,
+# shifts and masks
+MADD_OPS = ("mul", "sqr", "dbl", "addc")
+# H100, per SM a clock: 64 results of one class of 32-bit integer
+# instruction (add, logic, shift, multiply-add; CUDA C++ Programming
+# Guide, arithmetic instructions, compute capability 9.0), which bounds a
+# chain of multiply-adds; and at most 128 lanes of any mix (four
+# schedulers, one warp instruction each a clock), which bounds simple
+# operations: their adds can issue as multiply-adds beside the shifts
+# and masks (field_chain's carry chain ran above 64 a clock, PERF.md)
+INT32_PER_CLOCK_PER_SM = 64
+ISSUE_PER_CLOCK_PER_SM = 128
 
 
 # which kernels run the product the field rows time
-PRODUCTS = ("mul and sqr: csrc/fe25519.cuh's one-thread fe_mul / fe_sq, "
-            "the product of ed25519_split, ed25519_verify, vrf_verify and "
-            "the point chains; gamma8 runs csrc/fe25519_lp.cuh's "
-            "limb-parallel product (eight threads a lane), not timed here")
+PRODUCTS = ("mul and sqr: field_chain times csrc/fe25519.cuh's one-thread "
+            "product (mul the fe_mul call, sqr fe_sq_n's loop of inline "
+            "squares), the product of ed25519_split, ed25519_verify, "
+            "vrf_verify and the point chains; field_chain_lp times "
+            "csrc/fe25519_lp.cuh's limb-parallel product (eight threads a "
+            "lane; mul the lp_mul call, sqr lp_sq_n's loop), gamma8's")
+
+
+def int_ops(op: str, k: int, lanes: int) -> int:
+    """32-bit integer operations of a chain of k operations `op` on
+    `lanes` lanes: the chain kernels' bound counts these."""
+    return lanes * k * OPS_PER_STEP[op]
+
+
+def int_rate(dev: torch.device, mhz: float | None,
+             op: str | None = None) -> float | None:
+    """The card's 32-bit integer operations a second at `mhz`: of one
+    instruction class, or, for a chain operation outside MADD_OPS, of
+    any mix (None off the card or where the clock is not known)."""
+    if dev.type != "cuda" or not mhz:
+        return None
+    per_clock = (INT32_PER_CLOCK_PER_SM if op is None or op in MADD_OPS
+                 else ISSUE_PER_CLOCK_PER_SM)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return sms * per_clock * mhz * 1e6
 
 
 def inputs(lanes: int, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -145,20 +181,26 @@ def bench_ops(lanes: int, dev: torch.device, reps: int) -> list[dict]:
             t2, src2 = _call_ms(lambda: wrapper(a, b, op, k2), name, dev,
                                 reps)
             us = (t2 - t1) / (k2 - k1) * 1e3
+            ops_one = int_ops(op, 1, lanes)
+            rate = int_rate(dev, mhz, op)
             row = {"kernel": name, "op": op, "lanes": lanes,
                    "threads_per_lane": K.KERNELS[name].threads_per_lane,
                    "k": [k1, k2], "ms": [t1, t2], "us_per_op": us,
                    "cycles_per_op": us * mhz if mhz else None,
+                   "int_ops_per_op": ops_one,
+                   "bound_us_per_op": ops_one / rate * 1e6 if rate else None,
                    "time_from": src1 if src1 == src2 else f"{src1}/{src2}"}
             rows.append(row)
             cyc = (f"{row['cycles_per_op']:9.1f} cycles at {mhz:.0f} MHz"
                    if mhz else "cycles not measured")
             src = (f"device time from {row['time_from']}"
                    if dev.type == "cuda" else "host time, plain version")
+            bound = (f", bound {row['bound_us_per_op']:.4f} us"
+                     if rate else "")
             print(f"{name:14s} {op + ':':6s} {us:9.4f} us per batched op, "
-                  f"{cyc} (chain {k1}: {t1:.4f} ms, {k2}: {t2:.4f} ms; "
-                  f"{lanes} lanes, {row['threads_per_lane']} thread(s) a "
-                  f"lane; {src})", flush=True)
+                  f"{cyc}{bound} (chain {k1}: {t1:.4f} ms, {k2}: "
+                  f"{t2:.4f} ms; {lanes} lanes, {row['threads_per_lane']} "
+                  f"thread(s) a lane; {src})", flush=True)
     return rows
 
 

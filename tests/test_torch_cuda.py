@@ -13,10 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from ouroboros_tpu_torch.crypto import blake2b as B2
-from ouroboros_tpu_torch.crypto import ed25519 as E
+from ouroboros_tpu_torch import csrc_compare as CC
 from ouroboros_tpu_torch.crypto import ed25519_ref, kes, vrf_ref
-from ouroboros_tpu_torch.crypto import field as F
 from ouroboros_tpu_torch.crypto import kernels as K
 from ouroboros_tpu_torch.crypto.backend import (CpuRefBackend, Ed25519Req,
                                                 KesReq, VrfReq)
@@ -34,52 +32,18 @@ def dev():
     return torch.device("cuda")
 
 
-def _words(rng, rows, dev, clear_top=True, n=N):
-    a = rng.integers(0, 2**32, (rows, n), dtype=np.uint64).astype(np.uint32)
-    if clear_top:
-        a[-1] &= 0x7FFFFFFF
-    return torch.from_numpy(a).to(dev)
-
-
-def _sign(rng, dev, n=N):
-    return torch.from_numpy(rng.integers(0, 2, n).astype(np.int32)).to(dev)
-
-
 # the chain kernels' operations (microbench_field's path)
-CHAIN_OPS = {"field_chain": F.FIELD_OPS, "point_chain": E.POINT_OPS,
-             "point_chain_x4": E.POINT_OPS}
+CHAIN_OPS = CC.CHAIN_OPS
 
 
 def _limbs(rng, dev, n):
     """Two (10, n) int32 carried limb arrays of random radix-2^13 digits."""
-    return [F.limbs_from_radix13(rng.integers(0, 8192, (20, n),
-                                              dtype=np.int32))
-            .to(torch.int32).to(dev) for _ in range(2)]
+    return CC.random_limbs(rng, dev, n)
 
 
 def _random_args(name, rng, dev, n=N):
     """Random words for each of the kernel's inputs, n lanes."""
-    def w(rows, clear_top=True):
-        return _words(rng, rows, dev, clear_top, n)
-    if name == "ed25519_split":
-        return [w(8) for _ in range(5)] + [_sign(rng, dev, n)] \
-            + [w(8, False) for _ in range(2)]
-    if name == "vrf_verify":
-        return [w(8) for _ in range(3)] + [_sign(rng, dev, n), w(8),
-                                           w(4, False), w(8, False)]
-    if name == "ed25519_verify":
-        return [w(8), _sign(rng, dev, n), w(8), _sign(rng, dev, n),
-                w(8, False), w(8, False)]
-    if name == "gamma8":
-        return [w(8), _sign(rng, dev, n)]
-    if name in CHAIN_OPS:
-        return _limbs(rng, dev, n) + [CHAIN_OPS[name][-1], 5]
-    msgs = rng.integers(0, 256, (n, 64), dtype=np.uint8)
-    digs = np.stack([np.frombuffer(hashlib.blake2b(
-        m.tobytes(), digest_size=32).digest(), np.uint8) for m in msgs])
-    digs[::3, 0] ^= 1
-    return [torch.from_numpy(B2.msg_words(msgs)).to(dev),
-            torch.from_numpy(B2.digest_words(digs)).to(dev)]
+    return CC.random_args(name, rng, dev, n)
 
 
 def _launch_and_compare(dev, name, args):
@@ -121,6 +85,23 @@ def test_chain_kernels_on_every_operation(dev, name, n):
     a, b = _limbs(rng, dev, n)
     for op in CHAIN_OPS[name]:
         _launch_and_compare(dev, name, [a, b, op, 9])
+
+
+@pytest.mark.parametrize("name", ["field_chain", "field_chain_lp"])
+def test_field_chains_on_garbage_limbs(dev, name):
+    """Uncarried limbs anywhere in the range the products accept (sums of
+    four carried elements, |limb| <= 2^27 + 2^10), the extremes included,
+    at 4099 lanes: kernel and plain version limb for limb, every
+    operation."""
+    rng = np.random.default_rng(27)
+    bound = (1 << 27) + (1 << 10)
+    a, b = (rng.integers(-bound, bound + 1, (10, 4099)) for _ in range(2))
+    a[:, :64] = rng.choice((-bound, bound), (10, 64))
+    b[:, 32:96] = rng.choice((-bound, bound), (10, 64))
+    a, b = (torch.from_numpy(x.astype(np.int32)).to(dev) for x in (a, b))
+    for op in CHAIN_OPS[name]:
+        for k in (1, 9):
+            _launch_and_compare(dev, name, [a, b, op, k])
 
 
 def test_window_on_the_card_matches_cpu_ref(dev):

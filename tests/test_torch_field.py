@@ -87,12 +87,15 @@ def test_mul_at_the_limb_bound_stays_exact():
         assert bool((out[k].abs() <= (1 << (w - 1)) + 256).all())
 
 
+def _fits(x, bits):
+    assert -(1 << (bits - 1)) <= x < 1 << (bits - 1), (x, bits)
+    return x
+
+
 def _lp_mul_plan(f, g):
     """csrc/fe25519_lp.cuh's lp_mul_i in Python ints, owner by owner: each
     value the header keeps in 32 bits must fit them, each 64-bit one 64."""
-    def fits(x, bits):
-        assert -(1 << (bits - 1)) <= x < 1 << (bits - 1), (x, bits)
-        return x
+    fits = _fits
     t = {}
     for r in range(5):
         G = [g[(m + 2 * r) % 10] for m in range(10)]
@@ -144,6 +147,84 @@ def test_limb_parallel_product_plan_equals_mul():
     want = torch.cat([F.mul(f, g), F.sqr(f)], dim=1).T.tolist()
     got = [_lp_mul_plan(a, b) for a, b in zip(f.T.tolist(), g.T.tolist())]
     got += [_lp_mul_plan(a, a) for a in f.T.tolist()]
+    assert got == want
+
+
+def _one_thread_product_plan(f, g, square=False):
+    """csrc/fe25519.cuh's fe_mul_i (or fe_sq_i) and fe_finish_product in
+    Python ints: each value the header keeps in 32 bits must fit them,
+    each 64-bit one 64.  Columns start at the rounding offset 2^(W-1);
+    round 1's carry is 64 bits and its remainder the low W bits; rounds
+    2 and 3 are 32-bit after round 2's 64-bit sum u = v + c."""
+    W = F.WIDTHS
+    half = [1 << (w - 1) for w in W]
+    mask = [(1 << w) - 1 for w in W]
+    lo, hi = list(half), [0] * 10
+    for i in range(10):
+        for j in range(i if square else 0, 10):
+            m = 2 if i & 1 and j & 1 else 1
+            if square and i != j:
+                m *= 2
+            p = _fits(m * f[i], 32) * g[j]
+            if i + j < 10:
+                lo[i + j] = _fits(lo[i + j] + p, 64)
+            else:
+                hi[i + j - 10] = _fits(hi[i + j - 10] + p, 64)
+    s = [_fits(lo[k] + 19 * hi[k], 64) for k in range(10)]
+    c = [s[k] >> W[k] for k in range(10)]
+    v = [_fits(s[k] & mask[k], 32) for k in range(10)]
+    u = [_fits(v[k] + (19 * c[9] if k == 0 else c[k - 1]), 64)
+         for k in range(10)]
+    d = [_fits(u[k] >> W[k], 32) for k in range(10)]
+    w = [_fits(u[k] & mask[k], 32) for k in range(10)]
+    x = [_fits(w[k] + (_fits(19 * d[9], 32) if k == 0 else d[k - 1]), 32)
+         for k in range(10)]
+    e = [x[k] >> W[k] for k in range(10)]
+    y = [x[k] & mask[k] for k in range(10)]
+    return [_fits(y[k] - half[k] + (_fits(19 * e[9], 32) if k == 0
+                                     else e[k - 1]), 32) for k in range(10)]
+
+
+def test_one_thread_product_plan_equals_mul_and_sqr():
+    """fe_mul / fe_sq's narrow carry plan (round 1's carry in 64 bits and
+    its remainder from the low word, rounds 2-3 in 32 bits) gives mul's
+    and sqr's limbs exactly, at the limb bound they accept (sums of four
+    carried elements, |limb| <= 2^27 + 2^10) and on random carried and
+    uncarried limbs."""
+    bound = (1 << 27) + (1 << 10)
+    cols = [[bound] * 10, [-bound] * 10,
+            [bound if k % 2 else -bound for k in range(10)]]
+    cols += [[int(RNG.choice((-bound, bound))) for _ in range(10)]
+             for _ in range(20)]
+    cols += RNG.integers(-bound, bound + 1, (40, 10)).tolist()
+    cols += F.pack(_rand(40)).T.tolist()
+    f = torch.tensor(cols, dtype=torch.int64).T.contiguous()
+    g = f.roll(1, dims=1)
+    want = torch.cat([F.mul(f, g), F.sqr(f)], dim=1).T.tolist()
+    got = [_one_thread_product_plan(a, b)
+           for a, b in zip(f.T.tolist(), g.T.tolist())]
+    got += [_one_thread_product_plan(a, a, square=True)
+            for a in f.T.tolist()]
+    assert got == want
+
+
+def test_one_thread_carry_round_in_32_bits_equals_carry_round():
+    """fe_carry's 32-bit round (carry = f >> W plus bit W-1 of f, the
+    remainder wrapped to 32 bits) is field.carry_round on any int32
+    limbs, the extremes included."""
+    cols = [[-(1 << 31)] * 10, [(1 << 31) - 1] * 10,
+            [(1 << 31) - 1 if k % 2 else -(1 << 31) for k in range(10)]]
+    cols += RNG.integers(-(1 << 31), 1 << 31, (60, 10)).tolist()
+    cols += F.pack(_rand(20)).T.tolist()
+    want = F.carry_round(torch.tensor(cols, dtype=torch.int64).T).T.tolist()
+    got = []
+    for f in cols:
+        c = [_fits((v >> w) + ((v >> (w - 1)) & 1), 32)
+             for v, w in zip(f, F.WIDTHS)]
+        r = [(v - (ci << w)) & 0xFFFFFFFF for v, ci, w in zip(f, c, F.WIDTHS)]
+        r = [_fits(x - (1 << 32) if x >> 31 else x, 32) for x in r]
+        got.append([_fits(r[0] + 19 * c[9], 32)]
+                   + [_fits(r[k] + c[k - 1], 32) for k in range(1, 10)])
     assert got == want
 
 

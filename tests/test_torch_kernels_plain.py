@@ -286,16 +286,16 @@ def test_wrapper_argument_checks_raise(bad):
 
 
 def test_kernel_table_names_each_tpu_kernel():
-    """Seven TPU kernels, eight entries: the five of pallas_kernels.py and
+    """Seven TPU kernels, nine entries: the five of pallas_kernels.py and
     the two chain kernels of experiments/microbench_field.py (each a
-    nested `kernel` of the function making it), the point chain in two
-    launch shapes."""
+    nested `kernel` of the function making it), the field chain and the
+    point chain in two launch shapes each."""
     lines = {"ed25519_split": "_ed25519_split_kernel",
              "vrf_verify": "_vrf_verify_kernel",
              "gamma8": "_gamma8_kernel", "kes_hash": "_kes_hash_kernel",
              "ed25519_verify": "_ed25519_verify_kernel",
-             "field_chain": "kernel", "point_chain": "kernel",
-             "point_chain_x4": "kernel"}
+             "field_chain": "kernel", "field_chain_lp": "kernel",
+             "point_chain": "kernel", "point_chain_x4": "kernel"}
     assert set(K.KERNELS) == set(lines)
     assert len({k.replaces for k in K.KERNELS.values()}) == 7
     import os

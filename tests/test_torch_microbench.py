@@ -242,6 +242,9 @@ def test_chain_wrappers_run_the_plain_version_on_cpu_tensors(port_in):
     for op in F.FIELD_OPS:
         assert torch.equal(K.field_chain(*port_in, op, 3),
                            F.field_chain_core(*port_in, op, 3))
+    for op in F.FIELD_LP_OPS:
+        assert torch.equal(K.field_chain_lp(*port_in, op, 3),
+                           F.field_chain_core(*port_in, op, 3))
     for kind in E.POINT_OPS:
         want = E.point_chain_core(*port_in, kind, 3)
         assert torch.equal(K.point_chain(*port_in, kind, 3), want)
@@ -250,21 +253,56 @@ def test_chain_wrappers_run_the_plain_version_on_cpu_tensors(port_in):
     with pytest.raises(ValueError):
         K.field_chain(*port_in, "div", 3)
     with pytest.raises(ValueError):
+        K.field_chain_lp(*port_in, "add", 3)      # mul and sqr only
+    with pytest.raises(ValueError):
         K.point_chain_x4(*port_in, "dbl", -1)
 
 
-def test_entry_point_on_the_cpu_prints_one_line_per_operation(capsys):
-    out = MB.main(["--device", "cpu", "--ops", "--lanes", "8", "--reps",
-                   "1"])
-    lines = [ln for ln in capsys.readouterr().out.splitlines()
-             if "per batched op" in ln]
+@pytest.fixture(scope="module")
+def ops_run():
+    """One `--ops` run of the entry point on the CPU at 8 lanes: its
+    returned dict and its standard output."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = MB.main(["--device", "cpu", "--ops", "--lanes", "8", "--reps",
+                       "1"])
+    return out, buf.getvalue()
+
+
+def test_entry_point_on_the_cpu_prints_one_line_per_operation(ops_run):
+    out, text = ops_run
+    lines = [ln for ln in text.splitlines() if "per batched op" in ln]
     want = [(name, op) for name, ops, _k in MB.CHAINS for op in ops]
-    assert len(lines) == len(want) == 8
+    assert len(lines) == len(want) == 10
     for ln, (name, op) in zip(lines, want):
         assert ln.split()[:2] == [name, op + ":"]
     assert [(r["kernel"], r["op"]) for r in out["ops"]] == want
     assert all(r["time_from"] == "host" and r["cycles_per_op"] is None
                for r in out["ops"])
+
+
+def test_entry_point_lists_the_limb_parallel_rows_and_their_bound(ops_run):
+    """field_chain_lp's rows (mul and sqr, eight threads a lane) are
+    listed after field_chain's, and every row's bound counts
+    OPS_PER_STEP a lane: the plain versions' multiply-adds for the
+    products (test_ops_per_step_counts_the_plain_versions_products).  Off
+    the card there is no integer rate, so no bound time."""
+    out, text = ops_run
+    lp = [r for r in out["ops"] if r["kernel"] == "field_chain_lp"]
+    assert [r["op"] for r in lp] == list(F.FIELD_LP_OPS) == ["mul", "sqr"]
+    assert all(r["threads_per_lane"] == 8 and r["k"] == list(MB.FIELD_K)
+               for r in lp)
+    assert [r["kernel"] for r in out["ops"]].index("field_chain_lp") == \
+        len(F.FIELD_OPS)
+    for r in out["ops"]:
+        assert r["int_ops_per_op"] == MB.OPS_PER_STEP[r["op"]] * N == \
+            MB.int_ops(r["op"], 1, N)
+        assert r["bound_us_per_op"] is None
+    assert MB.int_ops("mul", 192, 4096) == 4096 * 192 * 100
+    assert MB.int_rate(torch.device("cpu"), 1980.0) is None
+    assert "field_chain_lp times" in text.splitlines()[0]
 
 
 def test_inputs_are_the_jax_scripts_draw(raw, port_in):
@@ -286,3 +324,24 @@ def test_entry_point_e2e_on_the_cpu(capsys):
                      "beta _finish_betas", "kes split_mixed (host hash path)"]
     assert all(r["time_from"] == "host" and r["ms"] > 0 for r in out["e2e"])
     assert "ops" not in out
+
+
+def test_csrc_compare_needs_the_card_and_feeds_every_kernel():
+    """The source-variant comparison raises without a card before it
+    builds anything, and its random inputs suit every kernel: each
+    tensor is of the wrapper's type and lane count (the chains and
+    kes_hash run through their plain versions here)."""
+    from ouroboros_tpu_torch import csrc_compare as CC
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CC.main(["no-such-dir"])
+    assert set(CC.CHAIN_OPS) == {name for name, _o, _k in MB.CHAINS}
+    rng = np.random.default_rng(3)
+    for name in K.KERNELS:
+        args = CC.random_args(name, rng, "cpu", 5)
+        tensors = [a for a in args if torch.is_tensor(a)]
+        assert all(t.shape[-1] == 5 for t in tensors), name
+        assert all(t.dtype in (torch.uint32, torch.int32)
+                   for t in tensors), name
+        if name in CC.CHAIN_OPS or name == "kes_hash":
+            got = getattr(K, name)(*args)
+            assert torch.equal(got, K.KERNELS[name].plain(*args)), name

@@ -24,6 +24,7 @@ from ouroboros_tpu.crypto import kes as jkes
 from ouroboros_tpu.crypto import vrf_ref as jvrf
 from ouroboros_tpu_torch import validate, windowgen
 from ouroboros_tpu_torch.crypto import backend as pb
+from ouroboros_tpu_torch.crypto import kes as kes_port
 from ouroboros_tpu_torch.crypto.precompute import PrecomputeCache
 from ouroboros_tpu_torch.crypto.torch_backend import TorchBackend
 
@@ -207,6 +208,41 @@ def test_validate_reports_each_tamper_kind():
             b * G.REQS_PER_BLOCK + pos
         ok = cpu.verify_mixed([_to_jax(r) for r in windows[w][b]])
         assert [i for i, o in enumerate(ok) if not o] == [pos]
+
+
+def _kes_root_key_cases():
+    """Depth 2, period 0: a valid request, one whose root key is cut to 31
+    bytes and one (another key's) grown to 33."""
+    keys = [jkes.KesSignKey(2, hashlib.sha256(s).digest())
+            for s in (b"k", b"k2")]
+    sigs = [k.sign(b"km").to_bytes() for k in keys]
+    vk, vk2 = (k.verification_key for k in keys)
+    valid = pb.KesReq(2, vk, 0, b"km", sigs[0])
+    short = pb.KesReq(2, vk[:31], 0, b"km", sigs[0])
+    long = pb.KesReq(2, vk2 + b"\x01", 0, b"km", sigs[1])
+    return valid, short, long
+
+
+@pytest.mark.parametrize("steps", [
+    [("short", [False])],
+    [("short valid long", [False, True, False]), ("valid", [True])],
+], ids=["short-key-alone", "mixed-window-then-warm-valid"])
+def test_kes_root_key_not_32_bytes_is_invalid_and_cached_nowhere(steps):
+    """A KesReq whose root key is not 32 bytes is structurally invalid:
+    False, as both CpuRefBackends say, with no Blake2b job scheduled and
+    no cache entry read or written, so a valid request of the same
+    signature in the same window passes and stays warm-valid after."""
+    valid, short, long = _kes_root_key_cases()
+    named = {"valid": valid, "short": short, "long": long}
+    be = TorchBackend(device="cpu")         # one backend for every step
+    for names, want in steps:
+        reqs = [named[n] for n in names.split()]
+        assert pb.CpuRefBackend().verify_mixed(reqs) == want
+        assert jb.CpuRefBackend().verify_mixed(
+            [_to_jax(r) for r in reqs]) == want
+        assert be.verify_mixed(reqs) == want, names
+    assert kes_port.hash_path_key(2, short.vk, 0, short.sig_bytes) is None
+    assert kes_port.hash_path_key(2, long.vk, 0, long.sig_bytes) is None
 
 
 def test_import_entries_from_the_jax_cache_match_the_port_fill():
