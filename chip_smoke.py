@@ -13,16 +13,23 @@ the CUDA toolkit.  Phases:
    8192; the full Ed25519 verify on the same 4096 requests with A-side
    tampers added; the four chain kernels on the field microbenchmark's
    4096 lanes at the longer chain of mul and of dbl) with tampered
-   lanes, compared exactly; ed25519_split, vrf_verify, gamma8 and
-   ed25519_verify (several threads a lane) again on the first n - 3 of
-   those lanes; and a sample of lanes against the CPU references
-   (ed25519_ref, vrf_ref, hashlib);
+   lanes, compared exactly; ed25519_split, vrf_verify, gamma8,
+   ed25519_verify and kes_hash (several threads a lane) again on the
+   first n - 3 of those lanes; a sample of lanes against the CPU
+   references (ed25519_ref, vrf_ref), and every KES job against hashlib
+   (tampered: a Merkle node, a digest's last word, a message's first
+   word); kes_hash also on 65536 random jobs, against its plain version
+   and hashlib, a quarter of them tampered in each of those ways and in
+   the digest's first word;
 3. kernel times, CUDA events around the wrapper call (`ms`, median of 7
-   after a warm-up, the host time of the launch included), the plain
-   versions' times, the verdict fold's and the per-key fill's times, and
-   each kernel's bound: per-lane 32-bit integer multiply-adds counted
-   from the plain version's field products (for the chains, k times
-   microbench_field.OPS_PER_STEP), over the card's integer rate, or its
+   after a warm-up, the host time of the launch included), the host time
+   of one wrapper call alone (`host_us`, device.host_us: median of 200,
+   the card idle at each call), the plain versions' times, the verdict
+   fold's and the per-key fill's times, and each kernel's bound: per-lane
+   32-bit integer multiply-adds counted from the plain version's field
+   products (for the chains, k times microbench_field.OPS_PER_STEP), over
+   the card's integer rate (kes_hash: blake2b.INT_OPS, the fewest simple
+   32-bit instructions a check needs, over the SM's issue rate), or its
    bytes over the memory rate, whichever is larger;
 4. the main path: `validate.drive` over six 1024-block windows of 1024
    pools, two in flight with fold=True: windows 0-2 valid, window 3 with
@@ -48,8 +55,9 @@ the CUDA toolkit.  Phases:
    --e2e` at 4096 lanes (one warp an SM for the one-thread kernels) and
    `--ops` at 65536 (sixteen), where each of the four must launch; last,
    each of the nine kernels' own device time from torch.profiler
-   (`device_ms`, median of 7 after two warm-ups), after every path whose
-   rate is measured, so that no profiling runs before them.  Every
+   (`device_ms`, median of 7 after two warm-ups), and kes_hash's at 65536
+   lanes too, after every path whose rate is measured, so that no
+   profiling runs before them.  Every
    per-operation time and device_ms must come from a profiler trace that
    held exactly the kernel's launches, never from CUDA events, which hold
    host time;
@@ -57,7 +65,8 @@ the CUDA toolkit.  Phases:
    per-operation rows at both lane counts), a `kernels` JSON line (each
    kernel's launches are those of its path: the main path's, the
    probe's for ed25519_verify, the microbenchmark's for the chains; its
-   launch shape as threads_per_lane and block), the card line, and as
+   launch shape as threads_per_lane and block; kes_hash's 65536-lane
+   row under `wide`), the card line, and as
    the last line {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero before the last line.  Without a
@@ -82,19 +91,18 @@ TAMPERS = {3: (517, "tamper_witness", "FIRST_WITNESS"),
            5: (700, "tamper_kes_node", "KES_SIG")}
 RUNS = 3                     # back-to-back runs of the main path
 SAMPLE = 16                  # blocks per window held against the CPU refs
-# H100 SXM: HBM3 at 3.35 TB/s (NVIDIA data sheet); the integer rate is
+# H100 SXM: HBM3 at 3.35 TB/s (NVIDIA data sheet); the integer rates are
 # microbench_field.int_rate's
 HBM_BYTES_PER_S = 3.35e12
-# blake2b compression: 12 rounds x 8 mixes of six 64-bit adds, four xors
-# and three non-trivial rotations, each two 32-bit operations, plus the
-# digest xors and the compare
-KES_INT_OPS = 12 * 8 * (6 + 4 + 3) * 2 + 4 * 2 * 2 + 8
+# kes_hash's lane count where the card is full (csrc_compare's too)
+KES_WIDE = 65536
 # the kernels each path must launch
 MAIN_PATH = ("ed25519_split", "vrf_verify", "gamma8", "kes_hash")
 PROBE_PATH = ("ed25519_split", "ed25519_verify", "vrf_verify", "gamma8")
 PROBE_ARGS = ["--reps", "5", "--n-ed", "4096", "--n-vrf", "2048", "--old"]
 # the kernels of several threads a lane, checked at a ragged lane count too
-RAGGED = ("ed25519_split", "vrf_verify", "gamma8", "ed25519_verify")
+RAGGED = ("ed25519_split", "vrf_verify", "gamma8", "ed25519_verify",
+          "kes_hash")
 # the field microbenchmark's lane counts (the JAX script's, and sixteen
 # times it) and its runs at them
 CHAIN_LANES = (4096, 65536)
@@ -177,8 +185,11 @@ def main() -> int:
                     "stack frame" in line and "bytes spill" in line:
                 log("  " + line.strip())
     dev = torch.device("cuda")
-    int_rate = microbench_field.int_rate(
-        dev, float(smi("clocks.max.sm").split()[0]))
+    mhz = float(smi("clocks.max.sm").split()[0])
+    int_rate = microbench_field.int_rate(dev, mhz)
+    # Blake2b's adds, xors and rotations are simple operations, bounded
+    # at the SM's issue rate as a chain's add is
+    issue_rate = microbench_field.int_rate(dev, mhz, "add")
 
     # -- data ---------------------------------------------------------------
     workers = os.cpu_count() or 1
@@ -211,8 +222,10 @@ def main() -> int:
     beta_t = [r.proof for b in windows[1] for r in b if isinstance(r, VrfReq)]
     beta_t[1] = bad_pt + beta_t[1][32:]
     beta_t[2] = bytes([beta_t[2][0] ^ 1]) + beta_t[2][1:]
-    kes_m = list(kes_msgs)
+    kes_m, kes_e = list(kes_msgs), list(kes_exps)
     kes_m[1] = bytes(32) + kes_m[1][32:]                      # bad node
+    kes_e[2] = kes_e[2][:31] + bytes([kes_e[2][31] ^ 1])   # last word
+    kes_m[3] = bytes([kes_m[3][0] ^ 1]) + kes_m[3][1:]     # first word
     # the full verify decompresses A too: lanes the split kernel never sees
     rf = int.from_bytes(hashlib.sha256(b"forged").digest(), "little") % ed.L
     forged = ed.compress(ed.scalar_mult(rf, ed.BASE)) + \
@@ -236,7 +249,7 @@ def main() -> int:
         vrf_args, (v_ok, v_gok, v_sok, v_pf) = aux._prep_vrf(
             vrf_t, aux._pad(len(vrf_t)))
         beta_args, beta_dec = aux._prep_betas(beta_t, aux._pad(len(beta_t)))
-        kes_args = aux._prep_kes_hash(kes_m, kes_exps, aux._pad(len(kes_m)))
+        kes_args = aux._prep_kes_hash(kes_m, kes_e, aux._pad(len(kes_m)))
     torch.cuda.synchronize()
     inputs = {"ed25519_split": ed_args, "vrf_verify": vrf_args,
               "gamma8": beta_args, "kes_hash": kes_args,
@@ -311,23 +324,48 @@ def main() -> int:
         if g8[j] != want:
             raise AssertionError(f"gamma8 lane {j} != vrf_ref.proof_to_hash")
     kes_got = outputs["kes_hash"]
-    for j, (m, e) in enumerate(zip(kes_m, kes_exps)):
+    for j, (m, e) in enumerate(zip(kes_m, kes_e)):
         if bool(kes_got[j]) != (hashlib.blake2b(m, digest_size=32).digest()
                                 == e):
             raise AssertionError(f"kes_hash lane {j} != hashlib")
     if ed_got[1] or ed_ok[2] or ed_got[3] or oks[1] or oks[2] or oks[3] \
-            or g8[1] is not None or kes_got[1]:
+            or g8[1] is not None or any(kes_got[1:4]):
         raise AssertionError("a tampered lane passed")
-    log("sample lanes == CPU references (tampered lanes rejected)")
+    log(f"sample lanes == CPU references, all {len(kes_m)} KES jobs == "
+        f"hashlib (tampered lanes rejected)")
+    # kes_hash where the card is full: random jobs, lane j valid for
+    # j % 4 == 0, else the digest's last word, the message's first word or
+    # the digest's first word changed
+    rng = np.random.default_rng(SEED)
+    wm = rng.integers(0, 256, (KES_WIDE, 64), dtype=np.uint8)
+    we = np.stack([np.frombuffer(hashlib.blake2b(
+        m.tobytes(), digest_size=32).digest(), np.uint8) for m in wm])
+    we[1::4, 31] ^= 0x80
+    wm[2::4, 0] ^= 1
+    we[3::4, 0] ^= 1
+    kes_wide = (torch.from_numpy(B2.msg_words(wm)).to(dev),
+                torch.from_numpy(B2.digest_words(we)).to(dev))
+    got = K.kes_hash(*kes_wide)
+    want = B2.check_block64(*kes_wide)
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    max_err["kes_hash"] = max(max_err["kes_hash"], err)
+    if err != 0 or got.cpu().tolist() != [int(j % 4 == 0)
+                                          for j in range(KES_WIDE)]:
+        raise AssertionError(f"kes_hash on {KES_WIDE} lanes: kernel != "
+                             f"plain version or hashlib (max abs err {err})")
+    log(f"kes_hash: kernel == plain version == hashlib on {KES_WIDE} "
+        f"lanes (tolerance 0)")
 
     # -- 3. times and bounds --------------------------------------------------
     report = []
     for name, args in inputs.items():
         ms = D.event_ms(lambda: wrappers[name](*args))
+        host_us = D.host_us(lambda: wrappers[name](*args))
         plain_ms = D.event_ms(lambda: K.KERNELS[name].plain(*args), reps=5)
         n = lanes[name]
         if name == "kes_hash":
-            ops = n * KES_INT_OPS
+            ops = n * B2.INT_OPS
         elif name in chains:
             ops = microbench_field.int_ops(args[2], args[3], n)
         else:
@@ -337,7 +375,8 @@ def main() -> int:
             ops = n * (100 * F.COUNTS["mul"] + 55 * F.COUNTS["sqr"])
         nbytes = sum(a.numel() * a.element_size() for a in args
                      if torch.is_tensor(a)) + outputs[name].nbytes
-        ops_ms = ops / int_rate * 1e3
+        ops_ms = ops / (issue_rate if name == "kes_hash" else int_rate) \
+            * 1e3
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         chain = {"chain": f"{args[2]}, k = {args[3]}"} if name in chains \
             else {}
@@ -346,13 +385,15 @@ def main() -> int:
             "replaces": K.KERNELS[name].replaces,
             "threads_per_lane": K.KERNELS[name].threads_per_lane,
             "block": K.KERNELS[name].block, "launches": 0,
-            "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": max_err[name], "ms": ms, "host_us": host_us,
+            "plain_ms": plain_ms,
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": None, **chain})
-        log(f"{name}: {ms:.4f} ms kernel (events), {plain_ms:.3f} ms "
-            f"plain, bound {max(ops_ms, bytes_ms):.4f} ms ({ops} int ops, "
-            f"{nbytes} bytes), {n} lanes"
+        log(f"{name}: {ms:.4f} ms kernel (events), {host_us:.2f} us host "
+            f"a call, {plain_ms:.3f} ms plain, bound "
+            f"{max(ops_ms, bytes_ms):.4f} ms ({ops} int ops, {nbytes} "
+            f"bytes), {n} lanes"
             + (f" ({chain['chain']})" if chain else ""))
     packed = torch.cat([
         K.ed25519_split(*ed_args).to(torch.uint8),
@@ -509,6 +550,14 @@ def main() -> int:
             lambda: wrappers[name](*args), f"{name}_kernel")
         log(f"{name}: {entry['device_ms']:.4f} ms device "
             f"({entry['device_ms_from']}), {entry['ms']:.4f} ms events")
+    wide_ms, wide_from = D.kernel_ms(lambda: K.kes_hash(*kes_wide),
+                                     "kes_hash_kernel")
+    kes_entry = next(e for e in report if e["name"] == "kes_hash")
+    kes_entry["wide"] = {
+        "lanes": KES_WIDE, "device_ms": wide_ms, "device_ms_from": wide_from,
+        "bound_ms": KES_WIDE * B2.INT_OPS / issue_rate * 1e3}
+    log(f"kes_hash: {wide_ms:.4f} ms device ({wide_from}) on {KES_WIDE} "
+        f"lanes, bound {kes_entry['wide']['bound_ms']:.4f} ms")
     # differenced per-operation times and the device column are the
     # kernels' own durations from clean traces, never CUDA events, which
     # hold host time
@@ -520,6 +569,8 @@ def main() -> int:
                 and not from_profiler(r["time_from"])]
     not_dev += [e["name"] for e in report
                 if not from_profiler(e["device_ms_from"])]
+    if not from_profiler(wide_from):
+        not_dev.append(f"kes_hash at {KES_WIDE} lanes")
     if not_dev:
         raise AssertionError(f"device times not from the profiler: "
                              f"{not_dev}")

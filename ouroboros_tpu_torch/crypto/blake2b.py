@@ -45,6 +45,17 @@ ROUNDS = tuple(SIGMA[r % 10] for r in range(12))
 # h0 with parameter block for digest_size=32, no key, fanout=depth=1
 H0 = (IV[0] ^ 0x01010020,) + IV[1:]
 
+# 32-bit instructions one check needs at the fewest, the kernel's bound:
+# a mix is four three-operand 64-bit adds (two each: the low half with
+# its carry out, the high half with it in; a zero message word costs
+# nothing more), four 64-bit xors (two each) and three non-trivial
+# rotations (two funnel shifts or byte permutes each; the 32-bit one is
+# a swap of halves), 22 for each of 12 rounds x 8 mixes; less the last
+# round's four row-B xors and rotations, which no digest word reads;
+# plus the compare, two three-input logic instructions a digest word.
+# All simple operations (adds, logic, shifts), none a multiply.
+INT_OPS = 12 * 8 * (4 * 2 + 4 * 2 + 3 * 2) - 4 * (2 + 2) + 8 * 2
+
 
 # -- host packing (blake2b_jax.msg_words / digest_words) -------------------
 

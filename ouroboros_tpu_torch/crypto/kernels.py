@@ -21,14 +21,19 @@ script's inputs), an operation name and a count.  `ed25519_split`,
 `ed25519_verify` and `point_chain_x4` run four threads a lane and
 `vrf_verify` eight (`csrc/ge25519_x4.cuh`: one thread a point
 coordinate); `gamma8` and `field_chain_lp` run eight, each field product
-spread over them (`csrc/fe25519_lp.cuh`); the others run one thread a
-lane.
+spread over them (`csrc/fe25519_lp.cuh`); `kes_hash` two, two columns of
+the Blake2b state each; the others run one thread a lane.
 
 On a CPU tensor a wrapper runs the kernel's plain PyTorch version (named
 in `KERNELS`); on a CUDA tensor it launches the kernel on the current
 stream, adds one to `LAUNCHES[name]`, and raises on anything the kernel
 does not take or on a launch error.  There is no fallback between the
-two.
+two.  A launch costs the host tens of microseconds, more than most of
+these kernels run (PERF.md), so the launch path does only what it must:
+the entry points are bound once, when the library loads; the stream is
+read as a raw handle; the device guard is entered only for a tensor
+that is not on the current device; and each argument check is one test
+that explains itself only when it fails.
 """
 from __future__ import annotations
 
@@ -83,7 +88,7 @@ KERNELS = {k.name: k for k in (
     Kernel("kes_hash", "ouro_kes_hash",
            "ouroboros_tpu_torch/csrc/kes_hash.cu",
            "ouroboros_tpu/crypto/pallas_kernels.py:454",
-           B2.check_block64, 1, 32),
+           B2.check_block64, 2, 64),
     Kernel("ed25519_verify", "ouro_ed25519_verify",
            "ouroboros_tpu_torch/csrc/ed25519_verify.cu",
            "ouroboros_tpu/crypto/pallas_kernels.py:105",
@@ -119,6 +124,7 @@ def reset_launches() -> None:
 # -- build ------------------------------------------------------------------
 
 _lib = None
+_fns: dict | None = None   # kernel name -> its bound entry point in _lib
 _lib_lock = threading.Lock()
 BUILD_LOG: list[str] = []      # nvcc's output (-Xptxas -v: registers, spills)
 
@@ -192,11 +198,11 @@ ENTRY_ARGS = {"ouro_ed25519_split": (9, 0), "ouro_vrf_verify": (8, 0),
               "ouro_point_chain_x4": (3, 2)}  # kind, k
 
 
-def bind(lib: ctypes.CDLL) -> list[str]:
+def bind(lib: ctypes.CDLL) -> dict:
     """Set the argument types of the entry points `lib` exports; returns
-    the names of the kernels it serves."""
+    {kernel name: entry point} for the kernels it serves."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    have = set()
+    fns = {}
     for sym, (n_ptr, n_int) in ENTRY_ARGS.items():
         try:
             fn = getattr(lib, sym)
@@ -204,44 +210,63 @@ def bind(lib: ctypes.CDLL) -> list[str]:
             continue
         fn.argtypes = [p] * n_ptr + [i] * n_int + [i, p]
         fn.restype = ctypes.c_int
-        have.add(sym)
-    return [k.name for k in KERNELS.values() if k.symbol in have]
+        fns.update((k.name, fn) for k in KERNELS.values() if k.symbol == sym)
+    return fns
 
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built at first use."""
-    global _lib
+    global _lib, _fns
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
-            missing = set(KERNELS) - set(bind(lib))
+            fns = bind(lib)
+            missing = set(KERNELS) - set(fns)
             if missing:
                 raise RuntimeError(f"kernel library lacks {sorted(missing)}")
-            _lib = lib
+            _lib, _fns = lib, fns
     return _lib
 
 
 # -- wrappers -----------------------------------------------------------------
 
-def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
+def _check(name: str, t: torch.Tensor, dtype, shape: tuple,
+           device) -> None:
+    """Raise unless `t` lies on `device` with `dtype`, `shape` (a tuple)
+    and a contiguous layout."""
+    if t.device == device and t.dtype == dtype and t.shape == shape \
+            and t.is_contiguous():
+        return
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != dtype:
         raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
+    if t.shape != shape:
         raise ValueError(f"{name}: shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
+    raise ValueError(f"{name}: not contiguous")
+
+
+def _raw_stream(index: int) -> int:
+    """The cudaStream_t of device `index`'s current stream: torch's own
+    getter, without the Stream object `torch.cuda.current_stream`
+    builds.  A torch built for CUDA has it (tests check its stub)."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def _launch(kernel: str, args, out: torch.Tensor, n: int,
             *ints: int) -> torch.Tensor:
-    fn = getattr(library(), KERNELS[kernel].symbol)
-    stream = torch.cuda.current_stream(out.device).cuda_stream
-    with torch.cuda.device(out.device):
-        err = fn(*[a.data_ptr() for a in args], out.data_ptr(), *ints, n,
-                 stream)
+    if _fns is None:
+        library()
+    fn = _fns[kernel]
+    dev = out.device.index
+    ptrs = [a.data_ptr() for a in args]
+    stream = _raw_stream(dev)
+    if dev == torch.cuda.current_device():
+        err = fn(*ptrs, out.data_ptr(), *ints, n, stream)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*ptrs, out.data_ptr(), *ints, n, stream)
     if err != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with "
                            f"cudaError_t {err}")

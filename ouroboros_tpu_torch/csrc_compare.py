@@ -3,7 +3,7 @@ card: the instrument for a design choice inside csrc/ (a carry plan, which
 call sites inline a product).
 
     python -m ouroboros_tpu_torch.csrc_compare DIR [DIR ...]
-        [--lanes 4096,65536] [--reps 7] [--sass OUTDIR]
+        [--lanes 4096,65536] [--reps 7] [--sass OUTDIR] [--floor]
 
 Each DIR holds a full copy of ouroboros_tpu_torch/csrc/, edited.  For
 each, in one process on one card: the build (`kernels.build`, one nvcc a
@@ -12,13 +12,19 @@ kernel the copy exports against its plain version on 96 and 97 lanes of
 random words or limbs, and the chain kernels on uncarried limbs at the
 products' bound, compared exactly (a copy that disagrees is reported and
 not timed); the device time of each window kernel at the main path's
-lane counts on random words; and µs per batched operation of every
-chain at each lane count, as `microbench_field --ops` takes them.  The
+lane counts on random words (kes_hash at 65536 lanes too); µs per
+batched operation of every chain at each lane count, as
+`microbench_field --ops` takes them; and the host µs of each step of
+one kes_hash and one vrf_verify wrapper call (`launch_parts`).  The
 first DIR runs again last, so that drift over the run shows.  A kernel
-that a copy does not export is skipped.  With --sass, `cuobjdump -sass`
-of each copy's library is written to OUTDIR/<name>.sass, and the
-instructions of the chain kernels are counted (`sass_counts`).  Needs
-the card and nvcc; the last line is a JSON object of every number.
+that a copy does not export is skipped.  Once a run: kes_hash's bound
+at each of its lane counts; with --floor, also the device time of an
+empty kernel and of one that only loads kes_hash's 24 words a lane and
+stores one, at each launch shape in KES_SHAPES (`floor_ms`).  With
+--sass, `cuobjdump -sass` of each copy's library is written to
+OUTDIR/<name>.sass, and the instructions of the chain kernels and of
+kes_hash are counted (`sass_counts`).  Needs the card and nvcc; the
+last line is a JSON object of every number.
 """
 from __future__ import annotations
 
@@ -39,26 +45,37 @@ from .crypto import blake2b as B2
 from .crypto import field as F
 from .crypto import kernels as K
 
-# the main path's lane counts (chip_smoke.py phase 2)
-WINDOW_LANES = {"ed25519_split": 4096, "vrf_verify": 2048, "gamma8": 2048,
-                "ed25519_verify": 4096, "kes_hash": 8192}
+# the main path's lane counts (chip_smoke.py phase 2); kes_hash also at
+# eight times its own, where the card is full
+WINDOW_LANES = {"ed25519_split": (4096,), "vrf_verify": (2048,),
+                "gamma8": (2048,), "ed25519_verify": (4096,),
+                "kes_hash": (8192, 65536)}
+# kes_hash's launch shapes (threads a lane, block) whose floor is timed
+KES_SHAPES = ((1, 32), (1, 128), (2, 64))
+# the wrappers whose launch is timed step by step: the smallest and the
+# largest host part of the event time (PERF.md)
+LAUNCH_PARTS = ("kes_hash", "vrf_verify")
 CHAIN_OPS = {name: ops for name, ops, _k in MB.CHAINS}
 # |limb| the products accept: sums of four carried elements
 LIMB_BOUND = (1 << 27) + (1 << 10)
-# the SASS instruction classes counted apart
-SASS_CLASSES = ("IMAD.WIDE", "SHFL", "SEL")
+# the SASS instruction classes counted apart (IMAD.X: nvcc's add of a
+# carry into a 64-bit sum's high half, beside IADD3.X)
+SASS_CLASSES = ("IMAD.WIDE", "IMAD.X", "SHFL", "SEL", "IADD3", "LOP3",
+                "SHF", "PRMT", "LDG")
 
 
 def sass_counts(text: str) -> dict:
-    """Instructions of each chain kernel of a `cuobjdump -sass` listing,
-    split at its CALL.REL targets: a __noinline__ callee is a subroutine
-    inside each kernel that calls it, from its target to the next one.
-    {kernel: [[start offset, instructions, {class: count}], ...]}, NOPs
-    left out."""
+    """Instructions of each chain kernel and of kes_hash_kernel in a
+    `cuobjdump -sass` listing, split at its CALL.REL targets: a
+    __noinline__ callee is a subroutine inside each kernel that calls
+    it, from its target to the next one.  {kernel: [[start offset,
+    instructions, {class: count}], ...]}, NOPs left out; a class counts
+    the instructions of that mnemonic (SHF is not SHFL)."""
     funcs, cur = {}, None
     for ln in text.splitlines():
         if "Function :" in ln:
-            m = re.search(r"Function : \S*?(\w+_chain\w*_kernel)", ln)
+            m = re.search(r"Function : \S*?(\w+_chain\w*_kernel|"
+                          r"kes_hash_kernel)", ln)
             cur = funcs.setdefault(m.group(1), []) if m else None
             continue
         m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([^;]+)",
@@ -74,8 +91,9 @@ def sass_counts(text: str) -> dict:
         for a, b in zip(starts, starts[1:] + [1 << 40]):
             ops = [t.split()[0] for addr, t in ins
                    if a <= addr < b and not t.startswith("NOP")]
-            parts.append([a, len(ops), {c: sum(o.startswith(c) for o in ops)
-                                        for c in SASS_CLASSES}])
+            parts.append([a, len(ops), {
+                c: sum(o == c or o.startswith(c + ".") for o in ops)
+                for c in SASS_CLASSES}])
         out[fn] = parts
     return out
 
@@ -143,20 +161,113 @@ def _mismatches(names: list[str], dev) -> list[str]:
     return bad
 
 
+def launch_parts(name: str, args: list, reps: int = 200) -> dict:
+    """Median host µs (device.host_us) of each step of one call of the
+    window kernel `name`'s wrapper on the card, as `kernels._launch`
+    takes them: the argument checks, the output's allocation, the raw
+    stream handle, the ctypes call (the launch itself), and the whole
+    wrapper call; and that call's CUDA-event µs, host and device time
+    together."""
+    dev = args[0].device
+    n = args[0].shape[-1]
+    wrapper = getattr(K, name)
+    out = wrapper(*args)
+    fn = K._fns[name]
+    stream = K._raw_stream(dev.index)
+    steps = {
+        "checks": lambda: [K._check("t", t, t.dtype, tuple(t.shape), dev)
+                           for t in args],
+        "torch.empty": lambda: torch.empty(out.shape, dtype=out.dtype,
+                                           device=dev),
+        "raw stream": lambda: K._raw_stream(dev.index),
+        "ctypes call": lambda: fn(*[t.data_ptr() for t in args],
+                                  out.data_ptr(), n, stream),
+        "wrapper": lambda: wrapper(*args),
+    }
+    res = {step: D.host_us(f, reps) for step, f in steps.items()}
+    # the wrapper call between two CUDA events, as chip_smoke.py's `ms`
+    # takes it, but over as many calls
+    res["wrapper, events"] = D.event_ms(lambda: wrapper(*args), reps) * 1e3
+    return res
+
+
+# an empty kernel, and one that loads a lane's 24 kes_hash words and
+# stores one: the floor under kes_hash at a launch shape
+FLOOR_CU = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+__global__ void empty_kernel() {}
+__global__ void touch_kernel(const uint32_t *__restrict__ w,
+                             int32_t *__restrict__ out, int n, int tpl) {
+    const int g = blockIdx.x * blockDim.x + threadIdx.x;
+    const int j = g / tpl;
+    if (j >= n) return;
+    uint32_t x = 0;
+#pragma unroll
+    for (int i = 0; i < 24; i++) x ^= w[(size_t)i * n + j];
+    if (g % tpl == 0) out[j] = (int32_t)x;
+}
+extern "C" int ouro_floor(const void *w, void *out, int n, int tpl,
+                          int block, int touch, void *stream) {
+    const int blocks = (n * tpl + block - 1) / block;
+    if (touch)
+        touch_kernel<<<blocks, block, 0, (cudaStream_t)stream>>>(
+            (const uint32_t *)w, (int32_t *)out, n, tpl);
+    else
+        empty_kernel<<<blocks, block, 0, (cudaStream_t)stream>>>();
+    return (int)cudaGetLastError();
+}
+"""
+
+
+def floor_ms(dev, lanes, reps: int) -> dict:
+    """Device ms of the empty and the loading kernel (FLOOR_CU) at
+    kes_hash's grid for each of its lane counts and KES_SHAPES."""
+    src = os.path.join(K.BUILD_DIR, "compare", "floor_src")
+    os.makedirs(src, exist_ok=True)
+    with open(os.path.join(src, "floor.cu"), "w") as fh:
+        fh.write(FLOOR_CU)
+    fn = ctypes.CDLL(K.build(src, os.path.join(K.BUILD_DIR, "compare",
+                                               "floor"))).ouro_floor
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    res = {}
+    for n in lanes:
+        w = torch.randint(0, 2**31, (24, n), dtype=torch.int32, device=dev)
+        out = torch.empty(n, dtype=torch.int32, device=dev)
+        for tpl, block in KES_SHAPES:
+            for touch, kernel in ((0, "empty_kernel"), (1, "touch_kernel")):
+                def call():
+                    if fn(w.data_ptr(), out.data_ptr(), n, tpl, block,
+                          touch, stream):
+                        raise RuntimeError(f"{kernel}: launch failed")
+                res[f"{kernel} {n} lanes, {tpl} x {block}"] = D.kernel_ms(
+                    call, kernel, reps)[0]
+    return res
+
+
 def measure(so: str, dev, lanes: list[int], reps: int) -> dict:
     """Check and time the kernels of one built library."""
     lib = ctypes.CDLL(so)
-    names = K.bind(lib)
-    K._lib = lib
+    fns = K.bind(lib)
+    names = list(fns)
+    K._lib, K._fns = lib, fns
     res = {"kernels": names, "mismatches": _mismatches(names, dev),
-           "device_ms": {}, "us_per_op": {}}
+           "device_ms": {}, "us_per_op": {}, "host_us": {}}
     if res["mismatches"]:
         return res
-    for name, n in WINDOW_LANES.items():
-        if name in names:
+    for name, counts in WINDOW_LANES.items():
+        for n in counts if name in names else ():
             args = random_args(name, np.random.default_rng(1), dev, n)
-            res["device_ms"][name] = D.kernel_ms(
+            res["device_ms"][f"{name} {n}"] = D.kernel_ms(
                 lambda: getattr(K, name)(*args), f"{name}_kernel", reps)[0]
+    for name in LAUNCH_PARTS:
+        if name in names:
+            args = random_args(name, np.random.default_rng(2), dev,
+                               WINDOW_LANES[name][0])
+            res["host_us"][name] = launch_parts(name, args)
     for n in lanes:
         a, b = MB.inputs(n, dev)
         for name, ops, (k1, k2) in MB.CHAINS:
@@ -175,6 +286,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--lanes", default="4096,65536")
     ap.add_argument("--reps", type=int, default=7)
     ap.add_argument("--sass", default=None)
+    ap.add_argument("--floor", action="store_true",
+                    help="also time the floor under kes_hash (floor_ms)")
     args = ap.parse_args(argv)
     dev = D.resolve(None)
     lanes = [int(x) for x in args.lanes.split(",")]
@@ -205,7 +318,19 @@ def main(argv=None) -> dict:
                         f"{c} {v}" for c, v in cl.items()) + ")"
                     for a, n, cl in parts), flush=True)
     order = list(builds) + list(builds)[:1]
-    out = {"device": D.device_kind(dev), "sass": sass, "runs": []}
+    mhz = MB.max_sm_mhz()
+    # kes_hash's adds, xors and rotations are simple operations: the
+    # SM's issue rate bounds them, as it bounds a chain's add
+    rate = MB.int_rate(dev, mhz, "add")
+    out = {"device": D.device_kind(dev), "clock_max_sm_mhz": mhz,
+           "sass": sass, "runs": [],
+           "kes_hash_bound_ms": {
+               n: n * B2.INT_OPS / rate * 1e3 if rate else None
+               for n in WINDOW_LANES["kes_hash"]}}
+    print(f"kes_hash bound ms: {out['kes_hash_bound_ms']}", flush=True)
+    if args.floor:
+        out["floor_ms"] = floor_ms(dev, WINDOW_LANES["kes_hash"], args.reps)
+        print(f"floor device ms: {out['floor_ms']}", flush=True)
     try:
         for name in order:
             res = measure(builds[name], dev, lanes, args.reps)
@@ -214,7 +339,11 @@ def main(argv=None) -> dict:
                                   if res["mismatches"] else "all exact"),
                   flush=True)
     finally:
-        K._lib = None
+        K._lib = K._fns = None
+    for r in out["runs"]:
+        for name, parts in r.get("host_us", {}).items():
+            print(f"[{r['name']}] {name} host us: " + ", ".join(
+                f"{step} {us:.2f}" for step, us in parts.items()))
     keys = sorted({k for r in out["runs"]
                    for part in ("device_ms", "us_per_op") for k in r[part]})
     print("device ms / us per op".ljust(32)

@@ -7,11 +7,12 @@ without a card, `default_device()` raises, and only an explicit
 `kernel_ms` times one kernel's launches on the card (torch.profiler's
 CUDA activity); `event_ms` times a call between two CUDA events, which
 also holds the host time of its launches (argument checks, allocation,
-the ctypes call).
+the ctypes call); `host_us` times that host part alone.
 """
 from __future__ import annotations
 
 import statistics
+import time
 
 import torch
 
@@ -65,6 +66,24 @@ def event_ms(fn, reps: int = 7, warm: int = 1) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def host_us(fn, reps: int = 200, warm: int = 2) -> float:
+    """Median host microseconds of one fn() call (time.perf_counter_ns
+    around the call alone), over `reps` calls after `warm` untimed ones.
+    The card is synchronised after each call, outside the timed span, so
+    every call starts on an idle queue: what is timed is the host's own
+    work of the call (for a wrapper: checks, allocation, the launch)."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter_ns()
+        fn()
+        times.append(time.perf_counter_ns() - t0)
+        torch.cuda.synchronize()
+    return statistics.median(times) / 1e3
 
 
 def kernel_ms(fn, kernel: str, reps: int = 7, warm: int = 2,

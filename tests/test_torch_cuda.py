@@ -66,7 +66,7 @@ def test_kernel_equals_plain_version_on_random_lanes(dev, name):
 
 @pytest.mark.parametrize("n", [1, 7, 97, 4099])
 @pytest.mark.parametrize("name", ["ed25519_split", "ed25519_verify",
-                                  "gamma8", "vrf_verify"])
+                                  "gamma8", "kes_hash", "vrf_verify"])
 def test_multi_thread_kernel_on_ragged_lane_counts(dev, name, n):
     """Several threads a lane: lane counts that no block size divides
     leave part of the last block past the end, where threads run on

@@ -17,7 +17,11 @@ comparison is exact.  The CPU side of the kernel wrappers (plain version
 on CPU tensors, no launch counted, argument checks) is tested here too;
 the CUDA side runs in test_torch_cuda.py and chip_smoke.py.
 """
+import ctypes
 import hashlib
+import pathlib
+import re
+import types
 
 import jax
 import jax.numpy as jnp
@@ -123,6 +127,31 @@ def test_kes_hash_plain_matches_jax():
     assert got.dtype == torch.int32
     assert got.tolist() == want.tolist()
     assert got.tolist() == [0 if j % 3 == 1 else 1 for j in range(N)]
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 97])
+def test_kes_hash_plain_edge_rows_match_jax_and_hashlib(n):
+    """Edge rows at lane counts around a warp: all-zero and all-ones
+    messages, digests that differ from the true one only in word 0 or
+    only in word 7, and a message whose first word differs from the one
+    hashed; the plain version, the JAX package's check and hashlib
+    agree on every lane."""
+    rng = np.random.default_rng(n)
+    msgs = rng.integers(0, 256, (n, 64), dtype=np.uint8)
+    msgs[0::5] = 0
+    msgs[1::5] = 0xFF
+    digs = np.stack([np.frombuffer(hashlib.blake2b(
+        m.tobytes(), digest_size=32).digest(), np.uint8) for m in msgs])
+    digs[2::5, 0] ^= 0x01                       # word 0 only
+    digs[3::5, 31] ^= 0x80                      # word 7 only
+    msgs[4::5, 0] ^= 0x01                       # message word 0 only
+    want = [int(hashlib.blake2b(m.tobytes(), digest_size=32).digest()
+                == d.tobytes()) for m, d in zip(msgs, digs)]
+    mw, ew = B2.msg_words(msgs), B2.digest_words(digs)
+    got = B2.check_block64(_t(mw), _t(ew))
+    assert got.tolist() == want
+    assert want == [int(j % 5 < 2) for j in range(n)]
+    assert np.asarray(JB2.check_block64_jit(_j(mw), _j(ew))).tolist() == want
 
 
 # -- gamma8 --------------------------------------------------------------------
@@ -283,6 +312,100 @@ def test_wrapper_argument_checks_raise(bad):
         with pytest.raises(ValueError):
             K._check("w", t, torch.uint32, (8, 4), torch.device("meta"))
     K._check("w", t, torch.uint32, (8, 4), dev)
+
+
+# the C signature of ouro_kes_hash: mw, ew, out, n, stream
+_KES_ENTRY = ctypes.CFUNCTYPE(ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                              ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p)
+
+
+@pytest.fixture
+def stand_in(monkeypatch):
+    """The card side of the kes_hash wrapper without a card: meta tensors
+    take it (their device is not the CPU), a stand-in C function of the
+    entry point's signature takes the launch and returns `rc[0]`, and the
+    stream and current-device queries answer for one device that, like a
+    meta tensor's, has no index."""
+    calls, rc = [], [0]
+
+    def entry(mw, ew, out, n, stream):
+        calls.append((n, stream))
+        return rc[0]
+    fn = _KES_ENTRY(entry)
+    monkeypatch.setattr(K, "_fns", {"kes_hash": fn})
+    monkeypatch.setattr(K, "_raw_stream", lambda index: 0xBEEF)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
+    monkeypatch.setitem(K.LAUNCHES, "kes_hash", 0)
+    return calls, rc
+
+
+def _meta(shape, dtype=torch.uint32):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "contiguity", "device",
+                                 "return code"])
+def test_launch_path_raises_on_bad_arguments_and_launch_errors(stand_in,
+                                                               bad):
+    """Each argument the kernel does not take raises before the launch;
+    a nonzero cudaError_t from the entry point raises after it; neither
+    counts a launch."""
+    calls, rc = stand_in
+    mw, ew = _meta((16, 5)), _meta((8, 5))
+    if bad == "dtype":
+        args, exc = (mw, _meta((8, 5), torch.int32)), TypeError
+    elif bad == "shape":
+        args, exc = (mw, _meta((8, 6))), ValueError
+    elif bad == "contiguity":
+        args, exc = (mw, _meta((5, 8)).T), ValueError
+    elif bad == "device":
+        args, exc = (mw, torch.zeros((8, 5), dtype=torch.uint32)), ValueError
+    else:
+        args, exc = (mw, ew), RuntimeError
+        rc[0] = 700
+    with pytest.raises(exc):
+        K.kes_hash(*args)
+    assert calls == ([(5, 0xBEEF)] if bad == "return code" else [])
+    assert K.LAUNCHES["kes_hash"] == 0
+
+
+def test_launch_path_launches_once_and_counts(stand_in):
+    """A good call goes to the bound entry point once, with the lane
+    count and the current stream's raw handle, counts one launch and
+    returns the output it allocated; the plain version never runs."""
+    calls, _rc = stand_in
+    out = K.kes_hash(_meta((16, 7)), _meta((8, 7)))
+    assert calls == [(7, 0xBEEF)]
+    assert K.LAUNCHES["kes_hash"] == 1
+    assert out.device.type == "meta" and out.dtype == torch.int32
+    assert tuple(out.shape) == (7,)
+
+
+def test_raw_stream_getter_is_part_of_this_torch():
+    """The launch path reads the stream with torch's private
+    `_cuda_getCurrentRawStream`, which a CPU-only build does not load:
+    its stub must declare it, with the signature `_raw_stream` calls,
+    and a build for CUDA must have it, so a torch without it fails here
+    rather than at a wrapper's first launch."""
+    stub = pathlib.Path(torch.__file__).parent / "_C" / "__init__.pyi"
+    assert re.search(r"^def _cuda_getCurrentRawStream\(device: _int\) "
+                     r"-> _int: \.\.\.$", stub.read_text(), re.M)
+    if torch.version.cuda is not None:
+        assert callable(torch._C._cuda_getCurrentRawStream)
+
+
+def test_bind_maps_each_entry_point_to_its_kernels():
+    """bind() types each entry point a library exports once and names
+    the kernels it serves; a kernel whose symbol is missing is left out
+    (library() then refuses the library)."""
+    lib = types.SimpleNamespace(
+        ouro_kes_hash=_KES_ENTRY(lambda *a: 0),
+        ouro_field_chain=ctypes.CFUNCTYPE(ctypes.c_int)(lambda: 0))
+    fns = K.bind(lib)
+    assert set(fns) == {"kes_hash", "field_chain"}
+    assert fns["kes_hash"] is lib.ouro_kes_hash
+    assert fns["kes_hash"].restype is ctypes.c_int
+    assert len(fns["field_chain"].argtypes) == 3 + 2 + 2
 
 
 def test_kernel_table_names_each_tpu_kernel():

@@ -345,3 +345,39 @@ def test_csrc_compare_needs_the_card_and_feeds_every_kernel():
         if name in CC.CHAIN_OPS or name == "kes_hash":
             got = getattr(K, name)(*args)
             assert torch.equal(got, K.KERNELS[name].plain(*args)), name
+
+
+def test_sass_counts_splits_chain_kernels_and_counts_kes_hash():
+    """`sass_counts` reads the chain kernels (keyed by their mangled
+    names) and kes_hash_kernel out of a `cuobjdump -sass` listing, splits
+    a kernel at its CALL.REL targets, and leaves out NOPs and every other
+    function."""
+    from ouroboros_tpu_torch import csrc_compare as CC
+
+    def ins(addr, text):
+        return f"        /*{addr:04x}*/                   {text} ;"
+    listing = "\n".join([
+        "\t\tFunction : _Z15kes_hash_kernelPKjS0_Pii",
+        ins(0x0, "LDG.E R2, desc[UR4][R2.64]"),
+        ins(0x10, "IADD3 R4, P0, P1, R2, R6, R8"),
+        ins(0x20, "SHF.R.W.U32.HI R5, R4, 0x18, R7"),
+        ins(0x30, "@!P0 SHFL.BFLY PT, R9, R4, 0x1, 0x1f"),
+        ins(0x40, "NOP"),
+        ins(0x50, "IMAD.X R5, RZ, RZ, R7, P0"),
+        "\t\tFunction : _Z18field_chain_kernelPKiS0_Piiii",
+        ins(0x0, "CALL.REL.NOINC 0x20"),
+        ins(0x10, "EXIT"),
+        ins(0x20, "IMAD.WIDE R2, R4, R5, RZ"),
+        ins(0x30, "RET.REL.NODEC R20 0x0"),
+        "\t\tFunction : _Z12other_kernelv",
+        ins(0x0, "IADD3 R1, R1, 0x1, RZ"),
+    ])
+    got = CC.sass_counts(listing)
+    assert set(got) == {"kes_hash_kernel", "_Z18field_chain_kernel"}
+    (start, n, cls), = got["kes_hash_kernel"]
+    assert (start, n) == (0, 5)
+    assert (cls["LDG"], cls["IADD3"], cls["SHF"], cls["SHFL"],
+            cls["IMAD.X"], cls["IMAD.WIDE"]) == (1, 1, 1, 1, 1, 0)
+    assert [(a, k) for a, k, _c in got["_Z18field_chain_kernel"]] == \
+        [(0, 2), (0x20, 2)]
+    assert got["_Z18field_chain_kernel"][1][2]["IMAD.WIDE"] == 1
