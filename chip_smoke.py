@@ -41,11 +41,29 @@ the CUDA toolkit.  Phases:
    betas; each of the four window kernels must have launched there.  The
    path runs three times back to back, each on a fresh backend, to show
    the spread of its rate beside the process's CPU seconds in each run;
-5. the standalone batch-verify path: `perf_probe --old` at 4096 Ed25519
+5. the Shelley replay: a chain forged in memory (chainsynth.py: 2304
+   blocks, 2 pools, f = 4/5, epoch length 600, two transactions a block,
+   k = 2160, KES depth 6) replayed from genesis through
+   `replay_blocks_pipelined` on a fresh TorchBackend at 1024-block
+   windows (the producer's sequential header/ledger pass, fold=True, two
+   windows in flight), three times with a cleared beta cache: every
+   block valid and the final ledger state_hash the forger's; each of the
+   four window kernels must launch in each run.  Then four tampered
+   chains, each stopping at its block: a KES signature flipped at 1500
+   (the proof failure wins over the envelope break at 1501), a witness
+   flipped before block 2100's header was forged (its proof), block 700
+   dropped (a sequential error), and a witness flipped after block 300
+   was forged (its proof; no body hash is checked, so the later windows
+   stay valid and go in behind it), every window each run submitted
+   finished; and 64 requests of each window of
+   the valid chain (their sequential pass rerun on the host) with the
+   tampered blocks' requests, verified on the card as the port's
+   CpuRefBackend verifies them;
+6. the standalone batch-verify path: `perf_probe --old` at 4096 Ed25519
    and 2048 VRF lanes (split and full Ed25519 verify, VRF verify, betas;
    each row asserts that every lane verifies), where ed25519_verify and
    the three kernels the probe drives must launch;
-6. the field microbenchmark path: field_chain, field_chain_lp (mul and
+7. the field microbenchmark path: field_chain, field_chain_lp (mul and
    sqr), point_chain and point_chain_x4 each held exactly against its
    plain version on the card for every operation at both of its chain
    lengths, at every lane count the microbenchmark runs (4096, the JAX
@@ -60,11 +78,20 @@ the CUDA toolkit.  Phases:
    profiling runs before them.  Every
    per-operation time and device_ms must come from a profiler trace that
    held exactly the kernel's launches, never from CUDA events, which hold
-   host time;
-7. a `main_path` JSON line, a `microbench_field` JSON line (the
-   per-operation rows at both lane counts), a `kernels` JSON line (each
+   host time.  After them one more replay of phase 5's valid chain runs
+   under torch.profiler for the card's busy seconds: its some hundred
+   thousand traced kernels could reach a later trace, so it comes last;
+8. a `main_path` JSON line, a `microbench_field` JSON line (the
+   per-operation rows at both lane counts), a `replay` JSON line
+   (blocks/s, proofs/s, the producer's host_seq and submit seconds with
+   the fill and fold inside it, and the consumer's drain seconds, per
+   window of each run; the launches per kernel; the profiled run's
+   busy seconds; the forging seconds; the card), a `kernels` JSON line
+   (each
    kernel's launches are those of its path: the main path's, the
-   probe's for ed25519_verify, the microbenchmark's for the chains; its
+   probe's for ed25519_verify, the microbenchmark's for the chains, and
+   for the four window kernels the replay's first run's as
+   `replay_launches`; its
    launch shape as threads_per_lane and block; kes_hash's 65536-lane
    row under `wide`), the card line, and as
    the last line {"ok": true, "device": {...}}.
@@ -74,6 +101,7 @@ card, or without the rest of the repository beside it, it exits 2.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -109,6 +137,17 @@ CHAIN_LANES = (4096, 65536)
 CHAIN_SAMPLE = 16            # lanes of each chain held against Python ints
 MB_RUNS = (["--ops", "--e2e", "--lanes", str(CHAIN_LANES[0])],
            ["--ops", "--lanes", str(CHAIN_LANES[1])])
+# the replay: bench.py's flagship widths (2 pools, f = 4/5, epoch length
+# 600, two transactions a block, window 1024), cut to two full windows
+# and a 256-block third, at KES depth 6
+REPLAY_BLOCKS = 2304
+REPLAY_KES_DEPTH = 6
+REPLAY_RUNS = 3
+REPLAY_SAMPLE = 64           # requests per window held against CpuRef
+# tampered chains: name -> (block, what fails there)
+REPLAY_TAMPERS = {"kes_sig": (1500, "proof"), "witness": (2100, "proof"),
+                  "dropped": (700, "sequential"),
+                  "witness_post": (300, "proof")}
 
 
 def log(*a):
@@ -142,6 +181,182 @@ def chain_int(op: str, x: int, y: int, k: int, ed) -> int:
     for _ in range(k):
         x = {"mul": x * y, "sqr": x * x, "add": x + y, "carry": x}[op] % p
     return x
+
+
+def replay_phase(card: str) -> dict:
+    """Phase 5: forge the chain, replay it on the card (valid three
+    times, then each tampered chain), hold a sample of each window's
+    requests against the port's CpuRefBackend.  Returns the `replay`
+    line's dict and (ext, chain) for the profiled run at the end."""
+    import numpy as np
+
+    from ouroboros_tpu_torch import chainsynth, replay
+    from ouroboros_tpu_torch.consensus.batch import _seq_block_step
+    from ouroboros_tpu_torch.consensus.header_validation import HeaderError
+    from ouroboros_tpu_torch.consensus.headers import ProtocolBlock
+    from ouroboros_tpu_torch.consensus.ledger import LedgerError
+    from ouroboros_tpu_torch.crypto import kernels as K
+    from ouroboros_tpu_torch.crypto.backend import CpuRefBackend
+    from ouroboros_tpu_torch.crypto.torch_backend import TorchBackend
+    from ouroboros_tpu_torch.eras.shelley import KES_FIELD
+
+    t = time.perf_counter()
+    ext, chain, forged, variant = chainsynth.forge_shelley(
+        REPLAY_BLOCKS, kes_depth=REPLAY_KES_DEPTH,
+        bad_witness_at=REPLAY_TAMPERS["witness"][0])
+    forge_s = time.perf_counter() - t
+    want_hash = forged.ledger.state_hash()
+    log(f"replay: forged {len(chain)} blocks in {forge_s:.3f} s (KES depth "
+        f"{REPLAY_KES_DEPTH}, {chain[-1].slot + 1} slots)")
+    runs = []
+    for run in range(REPLAY_RUNS):
+        backend = TorchBackend()
+        K.reset_launches()
+        r = replay.replay_once(ext, chain, backend, WINDOW)
+        r["launches"] = dict(K.LAUNCHES)
+        res = r["result"]
+        if not res.all_valid or res.n_valid != len(chain) or \
+                res.final_state.ledger.state_hash() != want_hash:
+            raise AssertionError(
+                f"replay run {run}: n_valid {res.n_valid} of {len(chain)}, "
+                f"error {res.error!r}, or a state_hash not the forger's")
+        missing = [k for k in MAIN_PATH if r["launches"][k] == 0]
+        if missing:
+            raise AssertionError(f"kernels not launched in the replay: "
+                                 f"{missing}")
+        runs.append(r)
+        sp = r["spans"]
+        log(f"replay run {run}: {r['blocks_per_s']:.1f} blocks/s, "
+            f"{r['proofs_per_s']:.1f} proofs/s ({r['seconds']:.3f} s), "
+            f"state_hash == forger's; host_seq {sum(sp['window.host_seq']):.3f}"
+            f" s, submit {sum(sp['window.submit']):.3f} s (fill "
+            f"{sum(sp['precompute.fill']):.3f}, fold "
+            f"{sum(sp['window.fold']):.3f}), drain "
+            f"{sum(sp['pipeline.drain']):.3f} s; launches {r['launches']}")
+
+    # the tampered chains
+    b = REPLAY_TAMPERS["kes_sig"][0]
+    sig = bytearray(chain[b].header.get(KES_FIELD))
+    sig[8] ^= 1
+    kes_bad = ProtocolBlock(
+        chain[b].header.with_fields(**{KES_FIELD: bytes(sig)}),
+        chain[b].body)
+    d = REPLAY_TAMPERS["dropped"][0]
+    w = REPLAY_TAMPERS["witness"][0]
+    # a witness flipped after forging: the replay checks no body hash, so
+    # the header and every later block stay valid and the producer runs
+    # ahead of the failing window
+    p = REPLAY_TAMPERS["witness_post"][0]
+    tx = chain[p].body[0]
+    (vk, wsig), = tx.witnesses
+    post = ProtocolBlock(chain[p].header, (dataclasses.replace(
+        tx, witnesses=((vk, wsig[:40] + bytes([wsig[40] ^ 1])
+                        + wsig[41:]),)),) + chain[p].body[1:])
+    chains = {"kes_sig": chain[:b] + [kes_bad] + chain[b + 1:],
+              "witness": chain[:w] + [variant],
+              "dropped": chain[:d] + chain[d + 1:],
+              "witness_post": chain[:p] + [post] + chain[p + 1:]}
+    tampered = {}
+    for name, blocks in chains.items():
+        at, kind = REPLAY_TAMPERS[name]
+        backend = TorchBackend()
+        finished = []
+        finish = backend.finish_window
+        backend.finish_window = lambda st, f=finish: \
+            finished.append(st) or f(st)
+        r = replay.replay_once(ext, blocks, backend, WINDOW)
+        # the first-error teardown: every window submitted was finished
+        # (read back, its event passed), windows past the failing one too
+        if len(finished) != backend.padding_stats()["windows"] or any(
+                st["event"] is not None and not st["event"].query()
+                for st in finished):
+            raise AssertionError(f"replay of the {name} chain left a "
+                                 f"window unfinished")
+        res = r["result"]
+        err = res.error
+        proof = isinstance(err, LedgerError) and "proof" in str(err)
+        seq = isinstance(err, HeaderError)
+        if res.n_valid != at or res.final_state is not None or \
+                not (proof if kind == "proof" else seq):
+            raise AssertionError(f"replay of the {name} chain: n_valid "
+                                 f"{res.n_valid}, expected {at} with a "
+                                 f"{kind} error; got {err!r}")
+        tampered[name] = {"n_valid": res.n_valid, "error": repr(err),
+                          "seconds": r["seconds"],
+                          "windows_submitted": len(finished)}
+        log(f"replay {name}: stopped at block {res.n_valid} ({err!r}); "
+            f"{len(finished)} windows submitted, all finished")
+
+    # a sample of every window's requests, and the tampered blocks', on
+    # the card against the CPU reference
+    protocol, ledger = ext.protocol, ext.ledger
+    st = ext.initial_state()
+    windows: list = []
+    extra: dict = {}
+    for i, blk in enumerate(chain):
+        if i % WINDOW == 0:
+            windows.append([])
+        for name, bad in (("kes_sig", kes_bad), ("witness", variant)):
+            if i == REPLAY_TAMPERS[name][0]:
+                extra[name] = _seq_block_step(protocol, ledger, st, bad)[0]
+        reqs, st = _seq_block_step(protocol, ledger, st, blk)
+        windows[-1].extend(reqs)
+    rng = np.random.default_rng(SEED)
+    card_be, cpu = TorchBackend(), CpuRefBackend()
+    n_sampled = n_false = 0
+    for wi, reqs in enumerate(windows):
+        pick = sorted(rng.choice(len(reqs), REPLAY_SAMPLE, replace=False))
+        sample = [reqs[j] for j in pick]
+        if wi == len(windows) - 1:
+            sample += extra["kes_sig"] + extra["witness"]
+        want = cpu.verify_mixed(sample)
+        got = card_be.verify_mixed(sample)
+        if got != want:
+            raise AssertionError(f"replay window {wi}: the card's verdicts "
+                                 f"on {len(sample)} requests != CpuRef")
+        n_sampled += len(sample)
+        n_false += want.count(False)
+    if n_false != 2:
+        raise AssertionError(f"{n_false} sampled requests failed; the two "
+                             f"tampered ones should, and only they")
+    log(f"replay: {n_sampled} sampled requests (the tampered blocks' "
+        f"included) == CpuRefBackend")
+    return {
+        "blocks": len(chain), "window": WINDOW,
+        "kes_depth": REPLAY_KES_DEPTH, "forge_s": forge_s,
+        "blocks_per_s": [r["blocks_per_s"] for r in runs],
+        "proofs_per_s": [r["proofs_per_s"] for r in runs],
+        "seconds": [r["seconds"] for r in runs],
+        "host_seq_s": [r["spans"]["window.host_seq"] for r in runs],
+        "submit_s": [r["spans"]["window.submit"] for r in runs],
+        "fill_s": [r["spans"]["precompute.fill"] for r in runs],
+        "fold_s": [r["spans"]["window.fold"] for r in runs],
+        "drain_s": [r["spans"]["pipeline.drain"] for r in runs],
+        "launches": [r["launches"] for r in runs],
+        "tampered": tampered, "sampled_requests": n_sampled,
+        "card": card}, (ext, chain)
+
+
+def replay_profiled(ext, chain) -> dict:
+    """One more replay of the valid chain under torch.profiler, apart from
+    the timed runs: the card's busy seconds and the kernels that took
+    them.  It traces some hundred thousand kernels, whose records can
+    reach a later trace, so it runs after every other profiled
+    measurement."""
+    from ouroboros_tpu_torch import device as D
+    from ouroboros_tpu_torch import replay
+    from ouroboros_tpu_torch.crypto.torch_backend import TorchBackend
+
+    prof, busy_s, top = D.profiled(
+        lambda: replay.replay_once(ext, chain, TorchBackend(), WINDOW), True)
+    if prof["result"].n_valid != len(chain):
+        raise AssertionError(f"profiled replay: n_valid "
+                             f"{prof['result'].n_valid}")
+    log(f"replay (profiled run): card busy {busy_s:.4f} s of "
+        f"{prof['seconds']:.3f} s; by device ms: "
+        + "; ".join(f"{n} {ms:.3f} ms x{c}" for n, ms, c in top[:6]))
+    return {"seconds": prof["seconds"], "device_busy_s": busy_s,
+            "device_top": top}
 
 
 def main() -> int:
@@ -480,7 +695,10 @@ def main() -> int:
         f"({n_checked} blocks checked), {len(proofs)} betas == vrf_ref "
         f"in each of {RUNS} runs")
 
-    # -- 5. the standalone batch-verify path --------------------------------
+    # -- 5. the Shelley replay ------------------------------------------------
+    rp, replayed = replay_phase(card)
+
+    # -- 6. the standalone batch-verify path --------------------------------
     K.reset_launches()
     t = time.perf_counter()
     probe_rows = perf_probe.main(PROBE_ARGS)
@@ -492,7 +710,7 @@ def main() -> int:
         raise AssertionError(f"kernels not launched on the probe's path: "
                              f"{missing}")
 
-    # -- 6. the field microbenchmark path -----------------------------------
+    # -- 7. the field microbenchmark path -----------------------------------
     # every (lanes, op, k) its runs launch, and the first n - 3 lanes of
     # each lane count, exactly against the plain versions; a sample of the
     # JAX shape's lanes against Python integers
@@ -574,13 +792,15 @@ def main() -> int:
     if not_dev:
         raise AssertionError(f"device times not from the profiler: "
                              f"{not_dev}")
+    rp["profiled"] = replay_profiled(*replayed)
 
-    # -- 7. report ------------------------------------------------------------
+    # -- 8. report ------------------------------------------------------------
     for entry in report:
         name = entry["name"]
         entry["max_abs_err"] = max_err[name]
         if name in MAIN_PATH:
             entry["path"], entry["launches"] = "main", launches[name]
+            entry["replay_launches"] = rp["launches"][0][name]
         elif name in PROBE_PATH:
             entry["path"] = "perf_probe --old"
             entry["launches"] = probe_launches[name]
@@ -601,6 +821,7 @@ def main() -> int:
         "clock_max_sm_mhz": mb_runs[0]["clock_max_sm_mhz"],
         "ops": [r for run in mb_runs for r in run["ops"]],
         "e2e": mb_runs[0]["e2e"]}}))
+    print(json.dumps({"replay": rp}))
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {

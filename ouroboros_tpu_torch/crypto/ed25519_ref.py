@@ -3,10 +3,13 @@
 Ported from `ouroboros_tpu/crypto/ed25519_ref.py`.  Only the pure
 functions are kept: the port's users run where no `cryptography` binding
 is installed, and RFC 8032 signing is deterministic, so the pure path
-gives the same bytes.  The port's batched kernels must agree bit-for-bit
-with `verify`.
+gives the same bytes (`public_key` and `sign` are the pure functions
+with a table for the fixed base and the key memoised).  The port's
+batched kernels must agree bit-for-bit with `verify`.
 """
 from __future__ import annotations
+
+import functools
 
 from . import edwards as ed
 from .edwards import BASE, L
@@ -41,8 +44,23 @@ def sign_pure(sk: bytes, msg: bytes) -> bytes:
     return R + int.to_bytes(s, 32, "little")
 
 
-public_key = public_key_pure
-sign = sign_pure
+# a chain's forger signs with a handful of keys thousands of times (pool
+# cold keys, KES leaves, payment keys): `public_key` and `sign` give the
+# pure functions' bytes with the fixed-base products from a table and the
+# public key derived once per seed
+@functools.lru_cache(maxsize=1 << 16)
+def public_key(sk: bytes) -> bytes:
+    a, _ = secret_expand(sk)
+    return ed.compress(ed.scalar_mult_base(a))
+
+
+def sign(sk: bytes, msg: bytes) -> bytes:
+    a, prefix = secret_expand(sk)
+    r = ed.sha512_int(prefix, msg) % L
+    R = ed.compress(ed.scalar_mult_base(r))
+    k = ed.sha512_int(R, public_key(sk), msg) % L
+    s = (r + k * a) % L
+    return R + int.to_bytes(s, 32, "little")
 
 
 def verify(vk: bytes, msg: bytes, sig: bytes) -> bool:

@@ -82,6 +82,35 @@ def scalar_mult(s: int, p):
     return q
 
 
+_BASE_ROWS = []       # _BASE_ROWS[j][i] = [i * 16^j]B, filled at first use
+
+
+def scalar_mult_base(s: int):
+    """[s]B for 0 <= s < 2^256 from a table of [i 16^j]B: one addition
+    per 4-bit digit and no doublings (the same point as
+    scalar_mult(s, BASE); the signers' and prover's fixed-base half)."""
+    if s >> 256:
+        return scalar_mult(s, BASE)
+    if not _BASE_ROWS:
+        p = BASE
+        rows = []
+        for _ in range(64):
+            row = [IDENTITY]
+            for _ in range(15):
+                row.append(pt_add(row[-1], p))
+            rows.append(row)
+            p = pt_double(pt_double(pt_double(pt_double(p))))
+        _BASE_ROWS[:] = rows
+    q = IDENTITY
+    for row in _BASE_ROWS:
+        if not s:
+            break
+        if s & 15:
+            q = pt_add(q, row[s & 15])
+        s >>= 4
+    return q
+
+
 def pt_equal(p, q) -> bool:
     X1, Y1, Z1, _ = p
     X2, Y2, Z2, _ = q

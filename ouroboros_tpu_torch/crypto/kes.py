@@ -17,9 +17,12 @@ Verification cost per signature = 1 Ed25519 verify + `depth` Blake2b hashes;
 the batched device path reuses the Ed25519 kernel for the leaves and checks
 the hash chain as Blake2b jobs (verify_walk).
 
-A copy of `ouroboros_tpu/crypto/kes.py` without key evolution (keys
-sign at period 0) and the one-shot verify, which the port does not use
-(it imports nothing of the JAX package).
+A copy of `ouroboros_tpu/crypto/kes.py` (the port imports nothing of
+the JAX package), with key evolution: `KesSignKey.evolve` steps the key
+one period, deriving the right subtree from the retained seed and
+dropping expired material, as the forging HotKey needs.  Left out: the
+one-shot `verify`, which the port does not use (`verify_prepare` and
+`verify_walk` carry its checks).
 """
 from __future__ import annotations
 
@@ -73,20 +76,30 @@ class KesSig:
 
 
 class KesSignKey:
-    """SumKES signing key at a given depth, at period 0 (the leftmost
-    leaf): the per-level vk pairs from the root down, and the leaf's
-    Ed25519 seed."""
+    """Evolving signing key for SumKES at a given depth."""
 
     def __init__(self, depth: int, seed: bytes):
         if len(seed) != SEED_BYTES:
             raise ValueError("seed must be 32 bytes")
         self.depth = depth
+        self.period = 0
+        # Path from root to current leaf: at each level keep the sibling vk
+        # pair and (for left positions) the retained seed of the right child.
         self._levels: list[dict] = []
-        for d in range(depth, 0, -1):
-            sl, sr = expand_seed(seed)
-            self._levels.append({"vks": (vk_of(d - 1, sl), vk_of(d - 1, sr))})
-            seed = sl
-        self._leaf_sk = seed   # ed25519 seed is the leaf signing key
+        self._leaf_sk = self._descend(depth, seed)
+
+    def _descend(self, depth: int, seed: bytes) -> bytes:
+        """Append the levels from a subtree of `depth` grown from `seed`
+        down to its leftmost leaf, keeping each right seed for later
+        evolution; returns the leaf's Ed25519 seed."""
+        if depth == 0:
+            return seed   # ed25519 seed is the leaf signing key
+        sl, sr = expand_seed(seed)
+        self._levels.append({"depth": depth, "on_right": False,
+                             "right_seed": sr,
+                             "vks": (vk_of(depth - 1, sl),
+                                     vk_of(depth - 1, sr))})
+        return self._descend(depth - 1, sl)
 
     # -- public api ---------------------------------------------------------
     @property
@@ -100,6 +113,24 @@ class KesSignKey:
         leaf_sig = dsign.sign(self._leaf_sk, msg)
         merkle = tuple(lv["vks"] for lv in reversed(self._levels))
         return KesSig(leaf_sig, merkle)
+
+    def evolve(self) -> None:
+        """Advance one period; raises when the key is exhausted."""
+        if self.period + 1 >= total_periods(self.depth):
+            raise ValueError("KES key exhausted")
+        self.period += 1
+        # find deepest level where we can move from left to right subtree
+        for i in range(len(self._levels) - 1, -1, -1):
+            lv = self._levels[i]
+            if not lv["on_right"]:
+                # move into the right subtree of this level
+                seed = lv["right_seed"]
+                lv["on_right"] = True
+                lv["right_seed"] = None   # forward security: drop it
+                self._levels = self._levels[:i + 1]
+                self._leaf_sk = self._descend(lv["depth"] - 1, seed)
+                return
+        raise AssertionError("unreachable: exhaustion checked above")
 
 
 def vk_of(depth: int, seed: bytes) -> bytes:

@@ -28,6 +28,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from ..observe import spans as _spans
 from . import ed25519 as E
 from . import field as F
 
@@ -107,7 +108,8 @@ class PrecomputeCache:
         yw, sign, y_ok = E._decode_compressed(arr)
         self.device_fills += 1
         with (torch.cuda.stream(self._stream) if self._stream is not None
-              else contextlib.nullcontext()):
+              else contextlib.nullcontext()), \
+                _spans.span("precompute.fill", cat="device"):
             yA = F.limbs_from_words(torch.from_numpy(yw).to(self.device))
             xa, x, y, ok = E.a128_core(
                 yA, torch.from_numpy(sign).to(self.device))

@@ -19,6 +19,17 @@ On a CUDA device the kernels always run; on the CPU (`device="cpu"`) the
 wrappers run their plain PyTorch versions.  There is no autotuner.
 Host inputs are staged through pinned memory so that submitting a window
 does not wait for the previous window's kernels.
+
+Each backend keeps its own `PrecomputeCache` (per-key Ed25519 / VRF
+entries and KES hash-path outcomes), where every JAX backend shares
+`GLOBAL_PRECOMPUTE_CACHE`: a fresh backend starts KES-cold and fills
+every key again, so each replay on a fresh backend launches the same
+kernels and runs on the card compare.  Verdicts do not depend on the
+choice, only which windows are KES-cold.
+
+Spans (observe/spans.py, recorded only when enabled): `window.submit`
+around a submit's host work, with `precompute.fill` and `window.fold`
+inside it, and `window.drain` around finish_window's wait and parse.
 """
 from __future__ import annotations
 
@@ -30,6 +41,7 @@ import numpy as np
 import torch
 
 from .. import device as device_mod
+from ..observe import spans as _spans
 from . import blake2b as B2
 from . import ed25519 as E
 from . import kernels as K
@@ -301,7 +313,8 @@ class TorchBackend(CryptoBackend):
         """Enqueue one window's device workload and return an opaque state
         for finish_window.  With fold=True the per-proof verdicts never
         leave the device: finish_window returns a WindowVerdict."""
-        with self._on_stream():
+        with self._on_stream(), _spans.span("window.submit",
+                                            cat="dispatch"):
             return self._submit_window(reqs, next_beta_proofs, fold)
 
     def _submit_window(self, reqs, next_beta_proofs, fold):
@@ -393,14 +406,19 @@ class TorchBackend(CryptoBackend):
         state["host_first_bad"] = host_bad
         if packed is None:
             return None
-        return fold_window(packed, ne, nv, state["nb"], state["nk"],
-                           self._dev(ed_own), self._dev(vrf_own),
-                           self._dev(gamma_b), self._dev(c_b))
+        with _spans.span("window.fold", cat="dispatch"):
+            return fold_window(packed, ne, nv, state["nb"], state["nk"],
+                               self._dev(ed_own), self._dev(vrf_own),
+                               self._dev(gamma_b), self._dev(c_b))
 
     def finish_window(self, state):
         """Wait for a submit_window's result (one copy); returns (ok list
         aligned with the submitted reqs, {proof: beta} for the requested
         next-window proofs), or (WindowVerdict, betas) for fold=True."""
+        with _spans.span("window.drain", cat="device"):
+            return self._finish_window(state)
+
+    def _finish_window(self, state):
         flat = None
         if state["host"] is not None:
             if state["event"] is not None:

@@ -1,7 +1,9 @@
 """ECVRF-ED25519-SHA512-Elligator2 — pure-Python CPU reference.
 
 Ported from `ouroboros_tpu/crypto/vrf_ref.py` without its native-ladder
-branch: `prove` is the pure-Python prover.  The VRF used by Praos leader election
+branch: `prove` is the pure-Python prover, with its fixed-base products
+from a table (`edwards.scalar_mult_base`) and the key memoised (the same
+bytes).  The VRF used by Praos leader election
 (reference seam: PraosVRF / `VRF.evalCertified` in
 Shelley/Protocol.hs:366-415; libsodium's crypto_vrf_ietfdraft03
 underneath): Elligator2 hash-to-curve, 16-byte challenge, proof = Gamma ||
@@ -12,6 +14,8 @@ four scalar multiplications U = [s]B - [c]Y, V = [s]H - [c]Gamma; this
 module is its bit-exactness oracle.
 """
 from __future__ import annotations
+
+import functools
 
 from . import edwards as ed
 from .edwards import BASE, L, P
@@ -38,12 +42,12 @@ def _hash_points(*pts) -> int:
 
 def prove(sk: bytes, alpha: bytes) -> bytes:
     x, prefix = _secret_expand(sk)
-    Y = ed.compress(ed.scalar_mult(x, BASE))
+    Y = public_key(sk)
     H = _hash_to_curve(Y, alpha)
     h_string = ed.compress(H)
     Gamma = ed.scalar_mult(x, H)
     k = ed.sha512_int(prefix, h_string) % L      # RFC8032-style nonce
-    c = _hash_points(H, Gamma, ed.scalar_mult(k, BASE), ed.scalar_mult(k, H))
+    c = _hash_points(H, Gamma, ed.scalar_mult_base(k), ed.scalar_mult(k, H))
     s = (k + c * x) % L
     return ed.compress(Gamma) + int.to_bytes(c, 16, "little") \
         + int.to_bytes(s, 32, "little")
@@ -65,10 +69,13 @@ def _hash_to_curve_bytes(vk: bytes, alpha: bytes) -> bytes:
     return int.to_bytes(y, 32, "little")
 
 
+@functools.lru_cache(maxsize=1 << 12)
 def public_key(sk: bytes) -> bytes:
-    """VRF verification key Y = [x]B for the 32-byte secret seed."""
+    """VRF verification key Y = [x]B for the 32-byte secret seed
+    (memoised: a forger proves with a few pool keys thousands of
+    times)."""
     x, _ = _secret_expand(sk)
-    return ed.compress(ed.scalar_mult(x, BASE))
+    return ed.compress(ed.scalar_mult_base(x))
 
 
 def _secret_expand(sk: bytes) -> tuple[int, bytes]:

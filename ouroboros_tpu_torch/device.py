@@ -7,7 +7,8 @@ without a card, `default_device()` raises, and only an explicit
 `kernel_ms` times one kernel's launches on the card (torch.profiler's
 CUDA activity); `event_ms` times a call between two CUDA events, which
 also holds the host time of its launches (argument checks, allocation,
-the ctypes call); `host_us` times that host part alone.
+the ctypes call); `host_us` times that host part alone; `profiled`
+traces a whole call and gives the card's busy seconds in it.
 """
 from __future__ import annotations
 
@@ -126,3 +127,28 @@ def kernel_ms(fn, kernel: str, reps: int = 7, warm: int = 2,
                        f"{len(dev) - len(mine)} other device events left "
                        f"out; no clean trace in {traces})")
     return partial or (event_ms(fn, reps, warm=0), "events")
+
+
+def profiled(fn, cuda: bool, top: int = 12):
+    """fn() under torch.profiler, tracing the card's activity only (CUDA
+    kernels and copies; the host's on the CPU).  Returns (fn's result,
+    the card's busy seconds: the union of the traced device intervals,
+    and the `top` names by total device milliseconds as [name, ms,
+    count])."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CUDA] if cuda else [ProfilerActivity.CPU]
+    with profile(activities=acts) as prof:
+        out = fn()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    by_name = [[e.key[:90], e.self_device_time_total / 1e3, e.count]
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    by_name.sort(key=lambda r: -r[1])
+    return out, busy_us / 1e6, by_name[:top]

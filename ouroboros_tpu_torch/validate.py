@@ -29,6 +29,7 @@ import queue
 import threading
 import time
 
+from . import device as device_mod
 from . import windowgen
 from .crypto.backend import VrfReq
 from .crypto.torch_backend import TorchBackend
@@ -113,28 +114,13 @@ def drive(windows, backend) -> dict:
 
 
 def profile_drive(windows, backend, top: int = 12) -> dict:
-    """drive() under torch.profiler, tracing the card's activity only
-    (CUDA kernels and copies).  Adds `device_busy_s`, the union of the
-    traced device intervals, and `device_top`, the `top` names by total
-    device milliseconds as [name, ms, count]."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    cuda = backend.device.type == "cuda"
-    acts = [ProfilerActivity.CUDA] if cuda else [ProfilerActivity.CPU]
-    with profile(activities=acts) as prof:
-        out = drive(windows, backend)
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    busy_us, end = 0.0, float("-inf")
-    for a, b in spans:
-        if b > end:
-            busy_us += b - max(a, end)
-            end = b
-    by_name = [[e.key[:90], e.self_device_time_total / 1e3, e.count]
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    by_name.sort(key=lambda r: -r[1])
-    out.update(device_busy_s=busy_us / 1e6, device_top=by_name[:top])
+    """drive() under torch.profiler (device.profiled).  Adds
+    `device_busy_s`, the union of the traced device intervals, and
+    `device_top`, the `top` names by total device milliseconds as
+    [name, ms, count]."""
+    out, busy_s, rows = device_mod.profiled(
+        lambda: drive(windows, backend), backend.device.type == "cuda", top)
+    out.update(device_busy_s=busy_s, device_top=rows)
     return out
 
 

@@ -126,3 +126,63 @@ def test_window_on_the_card_matches_cpu_ref(dev):
                                                        fold=True))
     assert verdict.first_bad == want.index(False)
     assert all(betas[p] == vrf_ref.proof_to_hash(p) for p in proofs)
+
+
+def test_replay_of_the_fixture_chain_on_the_card(dev):
+    """tests/test_replay_pipeline.py's 24-block chain (seed b"rp", KES
+    depth 4), forged with the port, replayed at window 8 through
+    TorchBackend on the card: every block valid with the forger's state
+    hash, the four window kernels launched, a KES signature flipped at
+    block 13 stopping there, as on the port's CpuRefBackend."""
+    from fractions import Fraction
+
+    from ouroboros_tpu_torch.consensus.batch import replay_blocks_pipelined
+    from ouroboros_tpu_torch.consensus.headers import (ProtocolBlock,
+                                                       make_header)
+    from ouroboros_tpu_torch.consensus.ledger import ExtLedgerRules
+    from ouroboros_tpu_torch.crypto.backend import GLOBAL_BETA_CACHE
+    from ouroboros_tpu_torch.eras.shelley import (
+        KES_FIELD, TPraosConfig, forge_tpraos_fields, shelley_genesis_setup)
+    cfg = TPraosConfig(k=3, f=Fraction(1, 2), epoch_length=20,
+                       slots_per_kes_period=5, kes_depth=4,
+                       max_kes_evolutions=14)
+    protocol, ledger, pools = shelley_genesis_setup(2, cfg, seed=b"rp")
+    ext = ExtLedgerRules(protocol, ledger)
+    state = ext.initial_state()
+    blocks, prev, slot = [], None, 0
+    while len(blocks) < 24:
+        view = ledger.forecast_view(state.ledger, slot)
+        ticked = protocol.tick_chain_dep_state(
+            state.header.chain_dep_state, view, slot)
+        for p in pools:
+            lead = protocol.check_is_leader(p["can_be_leader"], slot,
+                                            ticked, view)
+            if lead is None:
+                continue
+            h = forge_tpraos_fields(protocol, p["hot_key"],
+                                    p["can_be_leader"], lead,
+                                    make_header(prev, slot, (), issuer=0))
+            blocks.append(ProtocolBlock(h, ()))
+            state = ext.tick_then_reapply(state, blocks[-1])
+            prev = h
+            break
+        slot += 1
+    GLOBAL_BETA_CACHE.clear()
+    K.reset_launches()
+    res = replay_blocks_pipelined(ext, blocks, ext.initial_state(),
+                                  backend=TorchBackend(device=dev), window=8)
+    assert res.all_valid and res.n_valid == 24
+    assert (res.final_state.ledger.state_hash()
+            == state.ledger.state_hash())
+    assert all(K.LAUNCHES[k] > 0 for k in ("ed25519_split", "vrf_verify",
+                                            "gamma8", "kes_hash"))
+    bad = list(blocks)
+    sig = bytearray(bad[13].header.get(KES_FIELD))
+    sig[8] ^= 1
+    bad[13] = ProtocolBlock(
+        bad[13].header.with_fields(**{KES_FIELD: bytes(sig)}), ())
+    for backend in (TorchBackend(device=dev), CpuRefBackend()):
+        GLOBAL_BETA_CACHE.clear()
+        res = replay_blocks_pipelined(ext, bad, ext.initial_state(),
+                                      backend=backend, window=8)
+        assert (res.all_valid, res.n_valid) == (False, 13)

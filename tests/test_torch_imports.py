@@ -32,7 +32,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 20          # every module of every slice imported
+    assert n_modules >= 47          # every module of every slice imported
 
 
 def _require_no_card():
@@ -62,6 +62,31 @@ def test_backend_and_validate_raise_without_a_card():
         validate.main(["--windows", "1", "--window", "1", "--pools", "1",
                        "--workers", "1"])
     assert TorchBackend(device="cpu").device_kind == "cpu"
+
+
+def test_replay_and_default_backend_raise_without_a_card():
+    _require_no_card()
+    from ouroboros_tpu_torch import replay
+    from ouroboros_tpu_torch.crypto import backend
+    backend.set_default_backend(None)
+    with pytest.raises(RuntimeError):
+        backend.default_backend()
+    with pytest.raises(RuntimeError):
+        replay.run(blocks=1, window=1)
+    with pytest.raises(RuntimeError):
+        replay.main(["--blocks", "1", "--window", "1"])
+
+
+@pytest.mark.cuda
+def test_default_backend_on_the_card_is_a_torch_backend():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from ouroboros_tpu_torch.crypto import backend
+    from ouroboros_tpu_torch.crypto.torch_backend import TorchBackend
+    backend.set_default_backend(None)
+    got = backend.default_backend()
+    assert isinstance(got, TorchBackend) and got.device.type == "cuda"
+    assert backend.default_backend() is got
 
 
 def test_standalone_apis_and_probe_raise_without_a_card():
