@@ -59,11 +59,30 @@ the CUDA toolkit.  Phases:
    the valid chain (their sequential pass rerun on the host) with the
    tampered blocks' requests, verified on the card as the port's
    CpuRefBackend verifies them;
-6. the standalone batch-verify path: `perf_probe --old` at 4096 Ed25519
+6. the disk replay: phase 5's chain written to disk by the port's
+   db_synth (`write_chain`, chunks of 100 slots, in the native and the
+   reference format; its config.json must be what the db_synth CLI
+   writes for those arguments) and replayed from there by db_analyser's
+   `analysis_validate` (`--validate full --backend torch --window 1024
+   --read-ahead 4`: the prefetch thread reads and decodes chunks while
+   earlier windows verify), three times from the native DB and once
+   from the reference one, then once each at a read-ahead of 1 and 2
+   windows, each to the forger's state_hash with a cleared beta cache,
+   a fresh backend and each of the four window kernels launched; a run
+   with snapshots every 600 slots, a resumed
+   reopen that replays nothing, and a replay killed at its second drain
+   and resumed on a fresh TorchBackend to the same hash; a 2,100-block
+   Byron->Shelley DB (db_synth's cardano chain, epoch length 500, the
+   fork at block 1001 of the first window) replayed across its fork to
+   `--validate reapply`'s state_hash; and a copy of the native DB with a
+   witness byte of block 300 flipped in its chunk and the block's CRC
+   recomputed, which must stop at block 300 with a proof error, every
+   window it submitted finished;
+7. the standalone batch-verify path: `perf_probe --old` at 4096 Ed25519
    and 2048 VRF lanes (split and full Ed25519 verify, VRF verify, betas;
    each row asserts that every lane verifies), where ed25519_verify and
    the three kernels the probe drives must launch;
-7. the field microbenchmark path: field_chain, field_chain_lp (mul and
+8. the field microbenchmark path: field_chain, field_chain_lp (mul and
    sqr), point_chain and point_chain_x4 each held exactly against its
    plain version on the card for every operation at both of its chain
    lengths, at every lane count the microbenchmark runs (4096, the JAX
@@ -81,17 +100,23 @@ the CUDA toolkit.  Phases:
    host time.  After them one more replay of phase 5's valid chain runs
    under torch.profiler for the card's busy seconds: its some hundred
    thousand traced kernels could reach a later trace, so it comes last;
-8. a `main_path` JSON line, a `microbench_field` JSON line (the
+9. a `main_path` JSON line, a `microbench_field` JSON line (the
    per-operation rows at both lane counts), a `replay` JSON line
    (blocks/s, proofs/s, the producer's host_seq and submit seconds with
    the fill and fold inside it, and the consumer's drain seconds, per
    window of each run; the launches per kernel; the profiled run's
-   busy seconds; the forging seconds; the card), a `kernels` JSON line
+   busy seconds; the forging seconds; the card), a `disk_replay` JSON
+   line (per run blocks/s, proofs/s, the stream's stats, the spans of
+   the producer, the consumer and the prefetch thread's reads and
+   decoding, and the launches per kernel; the snapshot, resume, kill,
+   Cardano and tampered runs; the Cardano DB's cuts; the card), a
+   `kernels` JSON line
    (each
    kernel's launches are those of its path: the main path's, the
    probe's for ed25519_verify, the microbenchmark's for the chains, and
    for the four window kernels the replay's first run's as
-   `replay_launches`; its
+   `replay_launches` and the first native disk replay's as
+   `disk_replay_launches`; its
    launch shape as threads_per_lane and block; kes_hash's 65536-lane
    row under `wide`), the card line, and as
    the last line {"ok": true, "device": {...}}.
@@ -144,10 +169,28 @@ REPLAY_BLOCKS = 2304
 REPLAY_KES_DEPTH = 6
 REPLAY_RUNS = 3
 REPLAY_SAMPLE = 64           # requests per window held against CpuRef
+REPLAY_EPOCH = 600
 # tampered chains: name -> (block, what fails there)
 REPLAY_TAMPERS = {"kes_sig": (1500, "proof"), "witness": (2100, "proof"),
                   "dropped": (700, "sequential"),
                   "witness_post": (300, "proof")}
+# the disk replay: the replay's chain in db_synth's default chunks of 100
+# slots, in both on-disk formats, streamed with db_analyser's default
+# read-ahead of four windows; the native DB replayed three times
+FORMATS = ("native", "reference")
+DISK_CHUNK = 100
+DISK_READ_AHEAD = 4
+DISK_READ_AHEAD_SWEEP = (1, 2)   # one native run at each, after the three
+DISK_RUNS = 3
+DISK_SNAPSHOT_EVERY = 600    # slots: one epoch
+DISK_KILL_AT = 2             # the drain that stops the killed replay
+DISK_TAMPER_AT = 300         # the block whose witness is flipped on disk
+# the Byron->Shelley DB: db_synth's default epoch length (500), so the
+# fork (epoch 2) falls at block 1001, inside the first window; cut from
+# bench.py's 10,000 blocks to two full windows and a 52-block third
+CARDANO_BLOCKS = 2100
+CARDANO_EPOCH = 500
+CARDANO_CHUNK = 100
 
 
 def log(*a):
@@ -202,7 +245,7 @@ def replay_phase(card: str) -> dict:
 
     t = time.perf_counter()
     ext, chain, forged, variant = chainsynth.forge_shelley(
-        REPLAY_BLOCKS, kes_depth=REPLAY_KES_DEPTH,
+        REPLAY_BLOCKS, epoch_length=REPLAY_EPOCH, kes_depth=REPLAY_KES_DEPTH,
         bad_witness_at=REPLAY_TAMPERS["witness"][0])
     forge_s = time.perf_counter() - t
     want_hash = forged.ledger.state_hash()
@@ -334,7 +377,307 @@ def replay_phase(card: str) -> dict:
         "drain_s": [r["spans"]["pipeline.drain"] for r in runs],
         "launches": [r["launches"] for r in runs],
         "tampered": tampered, "sampled_requests": n_sampled,
-        "card": card}, (ext, chain)
+        "card": card}, (ext, chain, want_hash)
+
+
+class HardStop(BaseException):
+    """The disk phase's kill: not an Exception, so nothing between the
+    drain and the caller swallows it."""
+
+
+def _stream_run(label: str, fn, device) -> dict:
+    """One replay from disk (fn() gives db_analyser's JSON record, or a
+    StreamReplayResult) with a cleared beta cache, its launches counted
+    from 0 and its spans recorded: the main path's and the prefetch
+    thread's."""
+    from ouroboros_tpu_torch import replay
+    from ouroboros_tpu_torch.crypto import kernels as K
+    from ouroboros_tpu_torch.crypto.backend import GLOBAL_BETA_CACHE
+
+    GLOBAL_BETA_CACHE.clear()
+    K.reset_launches()
+    out, seconds, spans = replay.recording(
+        fn, replay.SPANS + replay.DISK_SPANS)
+    return {"label": label, "out": out, "seconds": seconds,
+            "spans": {k: sum(v) for k, v in spans.items()},
+            "launches": dict(K.LAUNCHES)}
+
+
+def _missing_kernels(run) -> list:
+    """The main path's kernels a replay that verified blocks never
+    launched."""
+    return [k for k in MAIN_PATH if run["launches"][k] == 0]
+
+
+def disk_phase(card: str, ext, chain, want_hash: bytes,
+               device=None) -> dict:
+    """Phase 6: phase 5's chain written to disk with the port's db_synth
+    and replayed from there with its db_analyser (the streaming engine:
+    the prefetch thread's reads and decoding, the producer's pass, the
+    card's windows); snapshots, a resumed reopen and a kill resumed on a
+    fresh backend; a Byron->Shelley DB across its hard fork; a DB with a
+    witness byte flipped in a chunk.  Returns the `disk_replay` line."""
+    import io
+    import shutil
+    import tempfile
+
+    from ouroboros_tpu_torch import db_analyser, db_synth
+    from ouroboros_tpu_torch.consensus.ledger import LedgerError
+    from ouroboros_tpu_torch.crypto.torch_backend import TorchBackend
+    from ouroboros_tpu_torch.storage import (
+        DiskPolicy, ImmutableDB, IoFS, StreamConfig, StreamingReplayEngine,
+        crc32)
+    from ouroboros_tpu_torch.storage.immutabledb import SecondaryEntry
+    from ouroboros_tpu_torch.storage.stream import prefetcher_threads_alive
+    from ouroboros_tpu_torch.utils import cbor
+
+    def validate(d, mode="full", read_ahead=DISK_READ_AHEAD, **kw):
+        db, rules, decode, cfg = db_analyser.load_db(d)
+        return db_analyser.analysis_validate(
+            db, rules, decode, "torch", mode, WINDOW, io.StringIO(),
+            hdr_proofs=db_analyser.HEADER_PROOFS[cfg["protocol"]],
+            db_dir=d, read_ahead=read_ahead, device=device, **kw)
+
+    def check(run, want, n):
+        rec = run["out"]
+        if rec["state_hash"] != want.hex() or rec["blocks"] != n:
+            raise AssertionError(
+                f"disk replay {run['label']}: {rec['blocks']} blocks, "
+                f"state_hash {rec['state_hash']}, expected {n} blocks and "
+                f"{want.hex()}")
+        if n and _missing_kernels(run):
+            raise AssertionError(f"disk replay {run['label']}: kernels not "
+                                 f"launched: {_missing_kernels(run)}")
+        st = rec["stream"]
+        log(f"disk replay {run['label']}: {rec['blocks']} blocks in "
+            f"{run['seconds']:.3f} s ({rec['blocks'] / run['seconds']:.1f} "
+            f"blocks/s, {rec['proofs'] / run['seconds']:.1f} proofs/s), "
+            f"state_hash == {'forger' if want == want_hash else 'reapply'}"
+            f"'s; disk {st['disk_secs']} s, hidden {st['disk_hidden_frac']}"
+            f", {st['chunks_read']} chunks, {st['prefetch_stalls']} "
+            f"stalls, host_seq {st['host_seq_secs']} s; spans "
+            + ", ".join(f"{k} {v:.3f}" for k, v in run["spans"].items())
+            + f"; launches {run['launches']}")
+        return run
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_disk_")
+    try:
+        # -- the Shelley DB, both formats, from phase 5's chain
+        dirs = {fmt: os.path.join(tmp, fmt) for fmt in FORMATS}
+        t = time.perf_counter()
+        config = db_synth.shelley_config(ext, DISK_CHUNK)
+        for fmt, d in dirs.items():
+            db_synth.write_chain(d, config, chain, fmt,
+                                 epoch_length=REPLAY_EPOCH)
+        write_s = time.perf_counter() - t
+        cli = db_synth.shelley_config_for(db_synth.parser().parse_args([
+            "--out", tmp, "--protocol", "shelley", "--blocks",
+            str(REPLAY_BLOCKS), "--epoch-length", str(REPLAY_EPOCH),
+            "--kes-depth", str(REPLAY_KES_DEPTH), "--chunk-size",
+            str(DISK_CHUNK)]))
+        for d in dirs.values():
+            with open(os.path.join(d, "config.json")) as fh:
+                if json.load(fh) != json.loads(json.dumps(cli)):
+                    raise AssertionError(f"{d}/config.json is not what "
+                                         f"db_synth writes for its "
+                                         f"arguments")
+        size = sum(os.path.getsize(os.path.join(r, f))
+                   for r, _d, fs in os.walk(dirs["native"]) for f in fs)
+        log(f"disk: wrote {len(chain)} blocks in both formats in "
+            f"{write_s:.3f} s ({size} bytes native, chunks of "
+            f"{DISK_CHUNK} slots); config.json == db_synth's")
+        runs = [check(_stream_run(f"native {i}",
+                                  lambda: validate(dirs["native"]), device),
+                      want_hash, len(chain))
+                for i in range(DISK_RUNS)]
+        runs.append(check(_stream_run(
+            "reference", lambda: validate(dirs["reference"]), device),
+            want_hash, len(chain)))
+        # a read-ahead shorter than the chain leaves chunks to decode
+        # while windows are in flight: what disk_hidden_frac measures
+        ahead = [check(_stream_run(
+            f"native, read-ahead {k}",
+            lambda k=k: validate(dirs["native"], read_ahead=k), device),
+            want_hash, len(chain)) for k in DISK_READ_AHEAD_SWEEP]
+
+        # -- snapshots, a resumed reopen, a kill resumed on a fresh backend
+        snap_dir = os.path.join(tmp, "snap")
+        shutil.copytree(dirs["native"], snap_dir)
+        snap = check(_stream_run("snapshots", lambda: validate(
+            snap_dir, snapshot_every=DISK_SNAPSHOT_EVERY), device),
+            want_hash, len(chain))
+        if snap["out"]["stream"]["snapshots_written"] < 2:
+            raise AssertionError("the snapshot run wrote fewer than two "
+                                 "snapshots")
+        reopen = check(_stream_run("resumed reopen", lambda: validate(
+            snap_dir, resume=True), device), want_hash, 0)
+        if reopen["out"]["stream"]["resumed_from_slot"] != chain[-1].slot:
+            raise AssertionError("the resumed reopen did not restore the "
+                                 "tip")
+        kill_dir = os.path.join(tmp, "kill")
+        shutil.copytree(dirs["native"], kill_dir)
+
+        class KillBackend(TorchBackend):
+            drains = 0
+
+            def finish_window(self, st):
+                self.drains += 1
+                if self.drains == DISK_KILL_AT:
+                    raise HardStop(f"hard stop at drain {self.drains}")
+                return super().finish_window(st)
+
+        def engine(d, backend, resume):
+            db, rules, decode, _cfg = db_analyser.load_db(d)
+            return StreamingReplayEngine(
+                IoFS(d), db, rules, decode, backend=backend,
+                config=StreamConfig(
+                    window=WINDOW, read_ahead=DISK_READ_AHEAD,
+                    policy=DiskPolicy(
+                        snapshot_interval_slots=DISK_SNAPSHOT_EVERY),
+                    resume=resume))
+
+        killed = engine(kill_dir, KillBackend(device), False)
+        try:
+            _stream_run("kill", killed.replay, device)
+            raise AssertionError("the replay ran past its kill")
+        except HardStop:
+            pass
+        if killed.snapshots_written < 1 or prefetcher_threads_alive():
+            raise AssertionError("the kill left no snapshot, or a live "
+                                 "prefetch thread")
+        resumed = _stream_run("resumed after the kill", engine(
+            kill_dir, TorchBackend(device), True).replay, device)
+        res = resumed["out"]
+        if not res.all_valid or not 0 < res.n_valid < len(chain) or \
+                res.final_state.ledger.state_hash() != want_hash:
+            raise AssertionError(f"resume after the kill: n_valid "
+                                 f"{res.n_valid}, error {res.error!r}, or "
+                                 f"a state_hash not the forger's")
+        if _missing_kernels(resumed):
+            raise AssertionError(f"resume after the kill: kernels not "
+                                 f"launched: {_missing_kernels(resumed)}")
+        kill = {"at_drain": DISK_KILL_AT,
+                "snapshots_written": killed.snapshots_written,
+                "resumed_from_slot": res.stats["resumed_from_slot"],
+                "resumed_blocks": res.n_valid,
+                "resumed_seconds": resumed["seconds"],
+                "stream": res.stats, "spans_s": resumed["spans"],
+                "launches": resumed["launches"]}
+        log(f"disk replay killed at drain {DISK_KILL_AT} after "
+            f"{killed.snapshots_written} snapshots; resumed from slot "
+            f"{res.stats['resumed_from_slot']} on a fresh backend: "
+            f"{res.n_valid} blocks to the forger's state_hash "
+            f"({resumed['seconds']:.3f} s); launches "
+            f"{resumed['launches']}")
+        if prefetcher_threads_alive():
+            raise AssertionError("a prefetch thread outlived its replay")
+
+        # -- the Byron->Shelley DB
+        card_dir = os.path.join(tmp, "cardano")
+        t = time.perf_counter()
+        info = db_synth.synth_cardano(db_synth.parser().parse_args([
+            "--out", card_dir, "--protocol", "cardano", "--eras",
+            "byron-shelley", "--blocks", str(CARDANO_BLOCKS),
+            "--epoch-length", str(CARDANO_EPOCH)]))
+        forge_s = time.perf_counter() - t
+        reapply = validate(card_dir, mode="reapply")
+        want_card = bytes.fromhex(reapply["state_hash"])
+        cardano = check(_stream_run("cardano", lambda: validate(card_dir),
+                                    device), want_card, CARDANO_BLOCKS)
+        fork_slot = info["fork_epoch"] * CARDANO_EPOCH
+        db = ImmutableDB.open(IoFS(card_dir), CARDANO_CHUNK,
+                              validate_all=False)
+        fork_block = sum(1 for e, _raw in db.stream() if e.slot < fork_slot)
+        if cardano["out"]["stream"]["era_crossings"] < 1 or \
+                fork_block >= WINDOW:
+            raise AssertionError(f"the Cardano replay crossed "
+                                 f"{cardano['out']['stream']['era_crossings']}"
+                                 f" eras, fork at block {fork_block}")
+        log(f"disk: forged the Byron->Shelley DB in {forge_s:.3f} s "
+            f"({CARDANO_BLOCKS} blocks, epoch length {CARDANO_EPOCH}, fork "
+            f"at slot {fork_slot}, block {fork_block}); reapply "
+            f"{reapply['secs']} s")
+
+        # -- a witness byte flipped in a chunk, its CRC recomputed
+        bad_dir = os.path.join(tmp, "tampered")
+        shutil.copytree(dirs["native"], bad_dir)
+        at = DISK_TAMPER_AT
+        db = ImmutableDB.open(IoFS(bad_dir), DISK_CHUNK)
+        n = db.chunk_of(chain[at].slot)
+        sec = os.path.join(bad_dir, "immutable", f"{n:05d}.secondary")
+        raw_idx = open(sec, "rb").read()
+        entries, pos = [], 0
+        while pos < len(raw_idx):
+            obj, used = cbor.loads_prefix(raw_idx[pos:])
+            entries.append(SecondaryEntry.decode(obj))
+            pos += used
+        j = next(i for i, e in enumerate(entries) if e.hash == chain[at].hash)
+        e = entries[j]
+        path = os.path.join(bad_dir, "immutable", f"{n:05d}.chunk")
+        data = bytearray(open(path, "rb").read())
+        wsig = chain[at].body[0].witnesses[0][1]
+        off = data.find(wsig, e.offset, e.offset + e.size)
+        if off < 0:
+            raise AssertionError("the witness is not in the block's bytes")
+        data[off + 40] ^= 1
+        open(path, "wb").write(bytes(data))
+        entries[j] = dataclasses.replace(e, crc=crc32(
+            bytes(data[e.offset:e.offset + e.size])))
+        open(sec, "wb").write(b"".join(cbor.dumps(x.encode())
+                                       for x in entries))
+        if len(ImmutableDB.open(IoFS(bad_dir), DISK_CHUNK)) != len(chain):
+            raise AssertionError("a validating open truncated the "
+                                 "tampered DB")
+        backend = TorchBackend(device)
+        finished = []
+        finish = backend.finish_window
+        backend.finish_window = lambda st, f=finish: \
+            finished.append(st) or f(st)
+        bad = _stream_run("tampered", engine(bad_dir, backend, False).replay,
+                          device)
+        res = bad["out"]
+        if res.n_valid != at or res.final_state is not None or not (
+                isinstance(res.error, LedgerError)
+                and "proof" in str(res.error)):
+            raise AssertionError(f"the tampered DB: n_valid {res.n_valid}, "
+                                 f"expected {at} with a proof error; got "
+                                 f"{res.error!r}")
+        if len(finished) != backend.padding_stats()["windows"] or any(
+                st["event"] is not None and not st["event"].query()
+                for st in finished):
+            raise AssertionError("the tampered DB's replay left a window "
+                                 "unfinished")
+        log(f"disk replay tampered (a witness byte of block {at} in chunk "
+            f"{n}, its CRC recomputed; a validating open keeps every "
+            f"block): stopped at block {res.n_valid} ({res.error!r}); "
+            f"{len(finished)} windows submitted, all finished")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    def row(run):
+        rec = run["out"]
+        return {"label": run["label"], "blocks": rec["blocks"],
+                "proofs": rec["proofs"], "seconds": run["seconds"],
+                "blocks_per_s": rec["blocks"] / run["seconds"],
+                "proofs_per_s": rec["proofs"] / run["seconds"],
+                "stream": rec["stream"], "spans_s": run["spans"],
+                "launches": run["launches"]}
+
+    return {
+        "blocks": len(chain), "window": WINDOW, "chunk_slots": DISK_CHUNK,
+        "read_ahead": DISK_READ_AHEAD, "write_s": write_s,
+        "runs": [row(r) for r in runs],
+        "read_ahead_runs": [row(r) for r in ahead],
+        "snapshots": row(snap), "resumed_reopen": row(reopen),
+        "kill": kill,
+        "cardano": dict(row(cardano), forge_s=forge_s,
+                        epoch_length=CARDANO_EPOCH, fork_block=fork_block,
+                        reapply_s=reapply["secs"],
+                        cuts={"blocks": [10_000, CARDANO_BLOCKS]}),
+        "tampered": {"block": at, "chunk": n, "n_valid": res.n_valid,
+                     "error": repr(res.error),
+                     "windows_submitted": len(finished)},
+        "card": card}
 
 
 def replay_profiled(ext, chain) -> dict:
@@ -698,7 +1041,10 @@ def main() -> int:
     # -- 5. the Shelley replay ------------------------------------------------
     rp, replayed = replay_phase(card)
 
-    # -- 6. the standalone batch-verify path --------------------------------
+    # -- 6. the disk replay ---------------------------------------------------
+    dr = disk_phase(card, *replayed)
+
+    # -- 7. the standalone batch-verify path --------------------------------
     K.reset_launches()
     t = time.perf_counter()
     probe_rows = perf_probe.main(PROBE_ARGS)
@@ -710,7 +1056,7 @@ def main() -> int:
         raise AssertionError(f"kernels not launched on the probe's path: "
                              f"{missing}")
 
-    # -- 7. the field microbenchmark path -----------------------------------
+    # -- 8. the field microbenchmark path -----------------------------------
     # every (lanes, op, k) its runs launch, and the first n - 3 lanes of
     # each lane count, exactly against the plain versions; a sample of the
     # JAX shape's lanes against Python integers
@@ -792,15 +1138,16 @@ def main() -> int:
     if not_dev:
         raise AssertionError(f"device times not from the profiler: "
                              f"{not_dev}")
-    rp["profiled"] = replay_profiled(*replayed)
+    rp["profiled"] = replay_profiled(*replayed[:2])
 
-    # -- 8. report ------------------------------------------------------------
+    # -- 9. report ------------------------------------------------------------
     for entry in report:
         name = entry["name"]
         entry["max_abs_err"] = max_err[name]
         if name in MAIN_PATH:
             entry["path"], entry["launches"] = "main", launches[name]
             entry["replay_launches"] = rp["launches"][0][name]
+            entry["disk_replay_launches"] = dr["runs"][0]["launches"][name]
         elif name in PROBE_PATH:
             entry["path"] = "perf_probe --old"
             entry["launches"] = probe_launches[name]
@@ -822,6 +1169,7 @@ def main() -> int:
         "ops": [r for run in mb_runs for r in run["ops"]],
         "e2e": mb_runs[0]["e2e"]}}))
     print(json.dumps({"replay": rp}))
+    print(json.dumps({"disk_replay": dr}))
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {

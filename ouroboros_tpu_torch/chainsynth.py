@@ -47,6 +47,17 @@ def tpraos_config(blocks: int, f: Fraction, epoch_length: int,
         max_kes_evolutions=kes_mod.total_periods(kes_depth) - 2)
 
 
+def shelley_setup(blocks: int, pools: int = 2, f: str = "4/5",
+                  epoch_length: int = 600, kes_depth: int = 10,
+                  seed: bytes = b"db-synth") -> tuple:
+    """The genesis a `blocks`-block chain is forged from: (ext_rules,
+    pool list), each pool with 100,000 of stake (db_synth's)."""
+    cfg = tpraos_config(blocks, Fraction(f), epoch_length, kes_depth)
+    protocol, ledger, pool_list = shelley_genesis_setup(
+        pools, cfg, stake_per_pool=100_000, seed=seed)
+    return ExtLedgerRules(protocol, ledger), pool_list
+
+
 def _flip_first_witness(body: list) -> list:
     tx = body[0]
     vk, sig = tx.witnesses[0]
@@ -66,10 +77,9 @@ def forge_shelley(blocks: int, txs_per_block: int = 2, pools: int = 2,
     forged and KES-signed (the key has evolved past its period by the
     end, so it cannot be re-signed later).  `log(forged)` is called
     every 500 blocks."""
-    cfg = tpraos_config(blocks, Fraction(f), epoch_length, kes_depth)
-    protocol, ledger, pool_list = shelley_genesis_setup(
-        pools, cfg, stake_per_pool=100_000, seed=seed)
-    ext = ExtLedgerRules(protocol, ledger)
+    ext, pool_list = shelley_setup(blocks, pools, f, epoch_length,
+                                   kes_depth, seed)
+    protocol, ledger = ext.protocol, ext.ledger
     state = ext.initial_state()
     # spendable (txid, ix, amount) per pool owner, from the genesis
     # pseudo-tx

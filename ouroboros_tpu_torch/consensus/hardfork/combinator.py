@@ -1,0 +1,343 @@
+"""The era combinator: one protocol/ledger over a sequence of eras.
+
+Reference: ouroboros-consensus/src/Ouroboros/Consensus/HardFork/Combinator/
+— protocol instance (Protocol.hs:91), ledger instance + cross-era
+forecasting (Ledger.hs), era translations (the `CanHardFork` record,
+ouroboros-consensus-cardano/src/.../CanHardFork.hs:365-422), era-tagged
+headers (Block/NestedContent.hs), `Degenerate` single-era shortcut
+(Degenerate.hs).
+
+Idiomatic collapse of the SOP/Telescope machinery: era-indexed state is
+`HardForkState(era, inner, transitions)` where `transitions` records the
+epoch at which each past era ended — exactly the info the reference's
+`Telescope` + `TransitionInfo` carry — and the `Summary` of §history is
+derived from it on demand.
+
+The era of a block is carried in an explicit header field (`hfc_era`),
+validated against the slot's era from the summary — the envelope check the
+reference performs via era-tagged decoding.
+
+Ported from `ouroboros_tpu/consensus/hardfork/combinator.py` (the port
+imports nothing of the JAX package). Copied whole.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Any, Callable, Optional, Sequence
+
+from ..ledger import ExtLedgerRules, LedgerError, LedgerRules
+from ..protocol import ConsensusProtocol, ProtocolError
+from .history import EraParams, PastHorizon, Summary
+
+ERA_FIELD = "hfc_era"
+
+
+@dataclass(frozen=True)
+class Era:
+    """One era + its exit: how the ledger decides the transition and how
+    state crosses the boundary (the CanHardFork translations)."""
+    name: str
+    protocol: ConsensusProtocol
+    ledger: LedgerRules
+    params: EraParams
+    # inner ledger state -> first epoch of the NEXT era (None: not decided)
+    transition_epoch: Optional[Callable[[Any], Optional[int]]] = None
+    # state translations applied at the boundary (identity by default)
+    translate_ledger: Callable[[Any], Any] = lambda s: s
+    translate_chain_dep: Callable[[Any], Any] = lambda s: s
+
+
+@dataclass(frozen=True)
+class HardForkState:
+    """(era index, inner state, recorded era-end epochs)."""
+    era: int
+    inner: Any
+    transitions: tuple = ()          # transitions[i] = epoch era i ended at
+
+    def state_hash(self) -> bytes:
+        """Era-tagged digest over the inner ledger state (for replay-parity
+        checks across backends)."""
+        import hashlib
+
+        from ...utils import cbor
+        return hashlib.blake2b(
+            cbor.dumps([self.era, list(self.transitions),
+                        self.inner.state_hash()]),
+            digest_size=32).digest()
+
+
+@dataclass(frozen=True)
+class HardForkLedgerView:
+    """What the combinator protocol needs from the combinator ledger."""
+    era: int
+    inner: Any
+    summary: Summary
+
+
+# Summary construction is pure in (era params, transition epochs), and the
+# transition tuple only changes when a transition is decided or crossed —
+# so summaries are memoised per transition tuple (the History/Caching.hs
+# EpochInfo cache role).  Keyed on the era-params identity so distinct
+# ledgers don't share entries.
+_SUMMARY_CACHE: dict = {}
+_SUMMARY_CACHE_MAX = 256
+
+
+def _effective_transitions(eras: Sequence[Era], state: HardForkState,
+                           inner_ledger_state: Optional[Any]) -> tuple:
+    """Recorded transitions plus (if decided) the current era's pending
+    transition read from the inner ledger state."""
+    transitions = tuple(state.transitions)
+    if inner_ledger_state is not None and state.era < len(eras) - 1:
+        fn = eras[state.era].transition_epoch
+        pending = fn(inner_ledger_state) if fn is not None else None
+        if pending is not None:
+            transitions = transitions + (pending,)
+    return transitions
+
+
+def _summary(eras: Sequence[Era], state: HardForkState,
+             inner_ledger_state: Optional[Any] = None) -> Summary:
+    transitions = _effective_transitions(eras, state, inner_ledger_state)
+    key = (tuple(e.params for e in eras), transitions)   # frozen dataclass
+    s = _SUMMARY_CACHE.get(key)
+    if s is None:
+        params = [e.params for e in eras[:len(transitions) + 1]]
+        s = Summary.from_era_params(params, list(transitions))
+        if len(_SUMMARY_CACHE) >= _SUMMARY_CACHE_MAX:
+            _SUMMARY_CACHE.clear()
+        _SUMMARY_CACHE[key] = s
+    return s
+
+
+def era_of_slot(eras: Sequence[Era], state: HardForkState,
+                inner_ledger_state: Any, slot: int) -> int:
+    s = _summary(eras, state, inner_ledger_state)
+    try:
+        return s.era_index_of_slot(slot)
+    except PastHorizon:
+        return len(s.eras) - 1       # open final era extends
+
+
+class HardForkLedger(LedgerRules):
+    """LedgerRules over HardForkState (Combinator/Ledger.hs)."""
+
+    def __init__(self, eras: Sequence[Era]):
+        self.eras = list(eras)
+
+    def initial_state(self) -> HardForkState:
+        return HardForkState(0, self.eras[0].ledger.initial_state(), ())
+
+    def tip(self, state: HardForkState):
+        return self.eras[state.era].ledger.tip(state.inner)
+
+    def summary(self, state: HardForkState) -> Summary:
+        return _summary(self.eras, state, state.inner)
+
+    def _cross(self, state: HardForkState, target_era: int,
+               summary: Summary) -> HardForkState:
+        """Tick across era boundaries, translating state (CanHardFork)."""
+        while state.era < target_era:
+            era = self.eras[state.era]
+            boundary = summary.eras[state.era].end
+            # tick the old era's ledger up to its boundary, then translate
+            inner = era.ledger.tick(state.inner, boundary.slot)
+            nxt = era.translate_ledger(inner)
+            state = HardForkState(state.era + 1, nxt,
+                                  state.transitions + (boundary.epoch,))
+        return state
+
+    def tick(self, state: HardForkState, slot: int) -> HardForkState:
+        summary = self.summary(state)
+        target = era_of_slot(self.eras, state, state.inner, slot)
+        state = self._cross(state, target, summary)
+        inner = self.eras[state.era].ledger.tick(state.inner, slot)
+        return replace(state, inner=inner)
+
+    def _check_block_era(self, state: HardForkState, block) -> None:
+        header = getattr(block, "header", block)
+        tagged = header.get(ERA_FIELD)
+        if tagged is None:
+            raise LedgerError("block missing era tag")
+        if tagged != state.era:
+            raise LedgerError(
+                f"block tagged era {tagged} but slot {block.slot} is in "
+                f"era {state.era} ({self.eras[state.era].name})")
+
+    def apply_block(self, ticked: HardForkState, block,
+                    backend=None) -> HardForkState:
+        self._check_block_era(ticked, block)
+        inner = self.eras[ticked.era].ledger.apply_block(
+            ticked.inner, block, backend=backend)
+        return replace(ticked, inner=inner)
+
+    def reapply_block(self, ticked: HardForkState, block) -> HardForkState:
+        inner = self.eras[ticked.era].ledger.reapply_block(ticked.inner,
+                                                           block)
+        return replace(ticked, inner=inner)
+
+    def sequential_checks(self, ticked: HardForkState, block) -> None:
+        self._check_block_era(ticked, block)
+        self.eras[ticked.era].ledger.sequential_checks(ticked.inner, block)
+
+    def extract_proofs(self, ticked: HardForkState, block) -> list:
+        return self.eras[ticked.era].ledger.extract_proofs(ticked.inner,
+                                                           block)
+
+    def apply_tx(self, state: HardForkState, tx, backend=None
+                 ) -> HardForkState:
+        """Mempool injection (Combinator/InjectTxs.hs): txs apply in the
+        current era.  A tx of an earlier era that survives in a mempool
+        across the boundary is rejected as a LedgerError (the reference
+        translates txs when possible; our tx types do not cross), so
+        mempool revalidation drops it instead of crashing."""
+        era = self.eras[state.era]
+        try:
+            inner = era.ledger.apply_tx(state.inner, tx, backend=backend)
+        except LedgerError:
+            raise
+        except Exception as e:
+            raise LedgerError(
+                f"tx not applicable in era {era.name}: {e}") from e
+        return replace(state, inner=inner)
+
+    def ledger_view(self, state: HardForkState) -> HardForkLedgerView:
+        inner_view = self.eras[state.era].ledger.ledger_view(state.inner)
+        return HardForkLedgerView(state.era, inner_view,
+                                  self.summary(state))
+
+    def forecast_view(self, state: HardForkState,
+                      slot: int) -> HardForkLedgerView:
+        """Cross-era forecasting (Combinator/Ledger.hs): when `slot` lands
+        past a decided transition, tick (translating state across the
+        boundary) and produce the NEW era's view — the view a header of
+        that era validates against."""
+        target = era_of_slot(self.eras, state, state.inner, slot)
+        if target == state.era:
+            inner_view = self.eras[state.era].ledger.forecast_view(
+                state.inner, slot)
+            return HardForkLedgerView(state.era, inner_view,
+                                      self.summary(state))
+        crossed = self.tick(state, slot)
+        inner_view = self.eras[crossed.era].ledger.ledger_view(
+            crossed.inner)
+        return HardForkLedgerView(crossed.era, inner_view,
+                                  self.summary(crossed))
+
+
+class HardForkProtocol(ConsensusProtocol):
+    """ConsensusProtocol over HardForkState (Combinator/Protocol.hs:91)."""
+
+    def __init__(self, eras: Sequence[Era]):
+        self.eras = list(eras)
+        self.security_param = max(e.protocol.security_param for e in eras)
+        # Envelope-level EBB admission: true if ANY era has EBBs; the exact
+        # era is enforced by the era tag + each protocol's own checks.
+        self.accepts_ebb = any(getattr(e.protocol, "accepts_ebb", False)
+                               for e in eras)
+
+    def initial_chain_dep_state(self) -> HardForkState:
+        return HardForkState(0, self.eras[0].protocol
+                             .initial_chain_dep_state(), ())
+
+    def _target_era(self, view: HardForkLedgerView, slot: int) -> int:
+        try:
+            return view.summary.era_index_of_slot(slot)
+        except PastHorizon:
+            return len(view.summary.eras) - 1
+
+    def tick_chain_dep_state(self, state: HardForkState,
+                             ledger_view: HardForkLedgerView,
+                             slot: int) -> HardForkState:
+        target = self._target_era(ledger_view, slot)
+        while state.era < target:
+            era = self.eras[state.era]
+            boundary = ledger_view.summary.eras[state.era].end
+            inner = era.protocol.tick_chain_dep_state(
+                state.inner, ledger_view.inner, boundary.slot)
+            state = HardForkState(state.era + 1,
+                                  era.translate_chain_dep(inner),
+                                  state.transitions + (boundary.epoch,))
+        inner = self.eras[state.era].protocol.tick_chain_dep_state(
+            state.inner, ledger_view.inner, slot)
+        return replace(state, inner=inner)
+
+    def sequential_checks(self, ticked: HardForkState, header,
+                          ledger_view: HardForkLedgerView) -> None:
+        tagged = header.get(ERA_FIELD)
+        if tagged is None:
+            raise ProtocolError("header missing era tag")
+        if tagged != ticked.era:
+            raise ProtocolError(
+                f"header tagged era {tagged}, expected {ticked.era}")
+        era_protocol = self.eras[ticked.era].protocol
+        # the combinator-level accepts_ebb is the union over eras; enforce
+        # the CURRENT era's admission here (protocols that predate the ebb
+        # field would otherwise grant the block_no non-increment exemption)
+        if header.get("ebb") and not getattr(era_protocol, "accepts_ebb",
+                                             False):
+            raise ProtocolError(
+                f"EBB header in era {self.eras[ticked.era].name}, which "
+                f"admits no EBBs")
+        era_protocol.sequential_checks(ticked.inner, header,
+                                       ledger_view.inner)
+
+    def extract_proofs(self, ticked: HardForkState, header,
+                       ledger_view: HardForkLedgerView) -> list:
+        return self.eras[ticked.era].protocol.extract_proofs(
+            ticked.inner, header, ledger_view.inner)
+
+    def vrf_proofs_of(self, headers) -> list:
+        """Collect VRF proofs per era tag (betas land in the shared
+        process-wide cache, so a flat list suffices)."""
+        by_era: dict = {}
+        for h in headers:
+            tag = h.get(ERA_FIELD)
+            if isinstance(tag, int) and 0 <= tag < len(self.eras):
+                by_era.setdefault(tag, []).append(h)
+        proofs: list = []
+        for tag, hs in by_era.items():
+            proofs.extend(self.eras[tag].protocol.vrf_proofs_of(hs))
+        return proofs
+
+    def reupdate_chain_dep_state(self, ticked: HardForkState, header,
+                                 ledger_view: HardForkLedgerView
+                                 ) -> HardForkState:
+        inner = self.eras[ticked.era].protocol.reupdate_chain_dep_state(
+            ticked.inner, header, ledger_view.inner)
+        return replace(ticked, inner=inner)
+
+    def check_is_leader(self, can_be_leader, slot: int,
+                        ticked: HardForkState,
+                        ledger_view: HardForkLedgerView):
+        """can_be_leader: dict era_index -> inner can_be_leader (a node may
+        hold credentials for a subset of eras)."""
+        inner_cbl = can_be_leader.get(ticked.era) \
+            if isinstance(can_be_leader, dict) else can_be_leader
+        if inner_cbl is None:
+            return None
+        proof = self.eras[ticked.era].protocol.check_is_leader(
+            inner_cbl, slot, ticked.inner, ledger_view.inner)
+        if proof is None:
+            return None
+        return (ticked.era, proof)
+
+
+def hard_fork_rules(eras: Sequence[Era]) -> ExtLedgerRules:
+    """The composed ExtLedgerRules (Degenerate.hs when len(eras)==1)."""
+    return ExtLedgerRules(HardForkProtocol(eras), HardForkLedger(eras))
+
+
+def hfc_forge(eras: Sequence[Era], era_forges: dict):
+    """BlockForging.forge for the combinator: tag the header with its era,
+    then dispatch to the era's forge function.
+
+    era_forges: era_index -> forge(inner_protocol, inner_proof, header).
+    The is-leader proof from HardForkProtocol.check_is_leader is
+    (era, inner_proof)."""
+    def forge(protocol: HardForkProtocol, proof, header):
+        era_ix, inner_proof = proof
+        tagged = header.with_fields(**{ERA_FIELD: era_ix})
+        return era_forges[era_ix](eras[era_ix].protocol, inner_proof,
+                                  tagged)
+    return forge

@@ -1,0 +1,412 @@
+"""db-analyser — open an on-disk chain DB, replay it, report.
+
+    python -m ouroboros_tpu_torch.db_analyser DIR --analysis show-slot-block-no
+    python -m ouroboros_tpu_torch.db_analyser DIR --analysis count-tx-outputs
+    python -m ouroboros_tpu_torch.db_analyser DIR --analysis show-header-size
+    python -m ouroboros_tpu_torch.db_analyser DIR [--analysis validate] \\
+        [--validate reapply|full] [--backend ref|openssl|torch] \\
+        [--device cuda|cpu] [--window 256] [--snapshot-every SLOTS] \\
+        [--resume] [--read-ahead W]
+    python -m ouroboros_tpu_torch.db_analyser FILE --analysis validate-real
+
+Reference: ouroboros-consensus-cardano/tools/db-analyser/ —
+Main.hs:27-40,95-145 (CLI: db dir, block-type config, --onlyImmutableDB,
+analysis selection), Analysis.hs (ShowSlotBlockNo / CountTxOutputs /
+ShowBlockHeaderSize / OnlyValidation streaming every block through an
+iterator), and the validate-mainnet CI gate that replays the whole chain
+through the ledger.
+
+`--validate full` replays through the streaming engine
+(storage/stream.py): a bounded read-ahead prefetcher reads ImmutableDB
+chunks and decodes them on a background thread while earlier windows
+verify; the producer thread runs the sequential header/ledger pass and
+submits each `--window` of blocks as one batch of VRF, KES and Ed25519
+proofs to the CryptoBackend; `--snapshot-every N` checkpoints the
+verified ledger state every N slots, and `--resume` restarts from the
+newest usable snapshot.  It prints one JSON line: blocks/s, proofs/s,
+the final ledger state hash and the stream's counts.
+
+Ported from `tools/db_analyser.py` (the port imports nothing of the JAX
+package).  Its CLI, JSON line and analyses are the reference's, but for
+the backends: `--backend torch` (the default) verifies on the CUDA card
+through `TorchBackend`, and raises without one unless `--device cpu` is
+given, which runs the plain PyTorch versions on the host; `ref` and
+`openssl` verify on the host.  The C++ and JAX backends are not offered.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+from . import device as device_mod
+from .consensus.headers import ProtocolBlock
+from .consensus.ledger import ExtLedgerRules
+from .crypto.backend import CpuRefBackend, OpensslBackend
+from .crypto.torch_backend import TorchBackend
+from .storage import refformat
+from .storage.fs import IoFS
+from .storage.immutabledb import ImmutableDB
+from .utils import cbor
+
+
+def load_db(db_dir: str):
+    with open(os.path.join(db_dir, "config.json")) as fh:
+        cfg = json.load(fh)
+
+    if cfg["protocol"] == "mock-praos":
+        from .consensus.protocols.praos import (
+            Praos, PraosConfig, PraosNode,
+        )
+        from .ledgers.mock import MockLedger, Tx
+        protocol = Praos(PraosConfig(
+            nodes=tuple(PraosNode(bytes.fromhex(nd["vrf_vk"]),
+                                  bytes.fromhex(nd["kes_vk"]), nd["stake"])
+                        for nd in cfg["nodes"]),
+            k=cfg["k"], f=cfg["f"], epoch_length=cfg["epoch_length"],
+            kes_depth=cfg["kes_depth"],
+            slots_per_kes_period=cfg["slots_per_kes_period"]))
+        ledger = MockLedger({bytes.fromhex(vk): amt
+                             for vk, amt in cfg["genesis"].items()})
+        tx_decode = Tx.decode
+        tx_body_elems = None
+    elif cfg["protocol"] == "cardano":
+        from .eras.cardano import (
+            cardano_block_decode, cardano_setup,
+        )
+        shelley_config = None
+        if "slots_per_kes_period" in cfg:
+            # db_synth sized the KES period to the chain length
+            # (long-chain DBs); mirror cardano_setup's defaults with
+            # only that knob overridden
+            from .eras.shelley import TPraosConfig
+            shelley_config = TPraosConfig(
+                k=8, epoch_length=cfg["epoch_length"],
+                slots_per_kes_period=cfg["slots_per_kes_period"],
+                kes_depth=5, max_kes_evolutions=30)
+        _eras, rules, _nodes = cardano_setup(
+            cfg["nodes"], epoch_length=cfg["epoch_length"],
+            shelley_config=shelley_config,
+            seed=cfg["seed"].encode(),
+            allegra_epoch=cfg.get("allegra_epoch"),
+            mary_epoch=cfg.get("mary_epoch"))
+        fs = IoFS(db_dir)
+        db = _open_immutable(fs, cfg)
+
+        def decode_cardano(raw: bytes):
+            return cardano_block_decode(cbor.loads(raw))
+
+        return db, rules, decode_cardano, cfg
+    elif cfg["protocol"] == "shelley":
+        from fractions import Fraction
+
+        from .eras.shelley import (
+            ShelleyLedger, ShelleyTx, TPraos, TPraosConfig,
+        )
+        tcfg = TPraosConfig(
+            k=cfg["k"], f=Fraction(cfg["f"]),
+            epoch_length=cfg["epoch_length"],
+            slots_per_kes_period=cfg["slots_per_kes_period"],
+            kes_depth=cfg["kes_depth"],
+            max_kes_evolutions=cfg["max_kes_evolutions"])
+        protocol = TPraos(tcfg, cfg["genesis_seed"].encode())
+        pools = {bytes.fromhex(p["pool_id"]): bytes.fromhex(p["vrf_vk"])
+                 for p in cfg["pools"]}
+        delegs = {bytes.fromhex(p["addr"]): bytes.fromhex(p["pool_id"])
+                  for p in cfg["pools"]}
+        ledger = ShelleyLedger(
+            {bytes.fromhex(a): amt for a, amt in cfg["genesis"].items()},
+            tcfg, pools, delegs)
+        tx_decode = ShelleyTx.decode
+        tx_body_elems = 6          # ShelleyTx: 6 body fields + witnesses
+    else:
+        raise SystemExit(f"unknown protocol {cfg['protocol']!r}")
+
+    rules = ExtLedgerRules(protocol, ledger)
+    fs = IoFS(db_dir)
+    db = _open_immutable(fs, cfg)
+
+    def decode(raw: bytes, _elems=tx_body_elems) -> ProtocolBlock:
+        # span-retaining decode: header bytes / KES message / tx ids come
+        # from raw slices instead of re-encoding (the replay host pass)
+        return ProtocolBlock.from_bytes(raw, tx_decode=tx_decode,
+                                        tx_body_elems=_elems)
+
+    return db, rules, decode, cfg
+
+
+def _open_immutable(fs, cfg):
+    """Open either on-disk dialect: the reference's .primary/.secondary/
+    .chunk layout (refformat.py; Impl/Index/{Primary,Secondary}.hs) is
+    auto-detected by the presence of .primary index files, else our native
+    CBOR-indexed ImmutableDB."""
+    if refformat.is_reference_db(fs):
+        return refformat.RefImmutableView(
+            refformat.RefDbReader(fs, cfg.get("chunk_size", 100)))
+    return ImmutableDB.open(fs, cfg.get("chunk_size", 100),
+                            validate_all=False)
+
+
+def make_backend(name: str, device=None):
+    """`ref` and `openssl` verify on the host; `torch` is a TorchBackend
+    on `device` (None: the CUDA card, and without one it raises; only
+    "cpu" runs the plain PyTorch versions)."""
+    if name == "ref":
+        return CpuRefBackend()
+    if name == "openssl":
+        return OpensslBackend()
+    if name == "torch":
+        return TorchBackend(device_mod.resolve(device))
+    raise SystemExit(f"unknown backend {name}")
+
+
+def analysis_show_slot_block_no(db, decode, out):
+    for entry, raw in db.stream():
+        b = decode(raw)
+        out.write(f"{b.slot}\t{b.block_no}\t{b.hash.hex()[:16]}\n")
+
+
+def analysis_count_tx_outputs(db, decode, out):
+    total = blocks = txs = 0
+    for entry, raw in db.stream():
+        b = decode(raw)
+        blocks += 1
+        for tx in b.body:
+            txs += 1
+            total += len(tx.outputs)
+    out.write(json.dumps({"blocks": blocks, "txs": txs,
+                          "tx_outputs": total}) + "\n")
+
+
+def analysis_show_header_size(db, decode, out):
+    biggest = (0, None)
+    for entry, raw in db.stream():
+        b = decode(raw)
+        size = len(b.header.bytes)
+        if size > biggest[0]:
+            biggest = (size, b.slot)
+        out.write(f"{b.slot}\t{size}\n")
+    out.write(f"# max header size {biggest[0]} at slot {biggest[1]}\n")
+
+
+# proofs per header: mock-praos = VRF + KES; shelley = 2 VRF + KES + OCert;
+# cardano = per era (Byron delegate sig | Shelley's 4; EBBs carry none)
+def _cardano_hdr_proofs(b) -> int:
+    if b.header.get("ebb"):
+        return 0
+    return 1 if b.header.get("hfc_era") == 0 else 4
+
+
+HEADER_PROOFS = {"mock-praos": 2, "shelley": 4,
+                 "cardano": _cardano_hdr_proofs}
+
+
+def analysis_validate(db, rules, decode, backend_name: str, mode: str,
+                      window: int, out, hdr_proofs: int = 2,
+                      db_dir: str = None, snapshot_every: int = 0,
+                      resume: bool = False, read_ahead: int = 4,
+                      device=None) -> dict:
+    """Replay the DB (`mode` "reapply": no crypto; "full": every proof
+    through `backend_name` on `device`), write the JSON line to `out`
+    and return it as a dict."""
+    backend = make_backend(backend_name, device) if mode == "full" \
+        else None
+    hdr_count = hdr_proofs if callable(hdr_proofs) \
+        else (lambda b, n=hdr_proofs: n)
+    ext = rules.initial_state()
+    counts = {"blocks": 0, "proofs": 0}
+    stream_stats = None
+    t0 = time.time()
+    if mode == "reapply":
+        for entry, raw in db.stream():
+            b = decode(raw)
+            counts["blocks"] += 1
+            counts["proofs"] += hdr_count(b) + sum(len(tx.witnesses)
+                                                   for tx in b.body)
+            ext = rules.tick_then_reapply(ext, b)
+    else:
+        # the streaming engine: disk + decode on a prefetch thread,
+        # DiskPolicy-driven snapshots, resume-from-latest-snapshot
+        from .storage import DiskPolicy, StreamConfig, StreamingReplayEngine
+
+        def counting_decode(raw: bytes):
+            b = decode(raw)
+            counts["blocks"] += 1
+            counts["proofs"] += hdr_count(b) + sum(len(tx.witnesses)
+                                                   for tx in b.body)
+            return b
+
+        policy = DiskPolicy(
+            snapshot_interval_slots=snapshot_every
+            if snapshot_every > 0 else (1 << 62))
+        engine = StreamingReplayEngine(
+            IoFS(db_dir), db, rules, counting_decode, backend=backend,
+            config=StreamConfig(
+                window=window, read_ahead=read_ahead, policy=policy,
+                resume=bool(resume),
+                # plain validation stays read-only on the DB dir;
+                # --resume alone still writes the tip checkpoint so the
+                # NEXT run restarts instantly
+                take_snapshots=snapshot_every > 0 or bool(resume)))
+        res = engine.replay()
+        if not res.all_valid:
+            raise SystemExit(
+                f"validation FAILED at block {res.n_valid}: {res.error}")
+        ext = res.final_state
+        stream_stats = res.stats
+    secs = time.time() - t0
+    blocks, proofs = counts["blocks"], counts["proofs"]
+    record = {
+        "analysis": "validate", "mode": mode,
+        "backend": backend_name if mode == "full" else "n/a",
+        "window": window if mode == "full" else None,
+        "blocks": blocks, "proofs": proofs,
+        "secs": round(secs, 3),
+        "blocks_per_sec": round(blocks / secs, 1),
+        "proofs_per_sec": round(proofs / secs, 1),
+        "state_hash": ext.ledger.state_hash().hex(),
+        "tip_slot": ext.header.tip.slot if ext.header.tip else None,
+        **({"stream": stream_stats} if stream_stats is not None else {}),
+    }
+    out.write(json.dumps(record) + "\n")
+    return record
+
+
+def analyse_real_shelley(path: str, backend_name: str, out,
+                         device=None) -> None:
+    """Parse + fully validate REAL Cardano bytes (a header or a block
+    file in any of the reference's encodings: bare, tag-24, or the HFC
+    era wrapper).  Shelley bytes get the complete PRTCL/BBODY crypto —
+    both VRF verify equations, KES over the body slice, OCert, witness
+    multi-verify — on the chosen backend; Byron bytes get structural
+    parse + the blake2b header-hash construction (the Ed25519-BIP32
+    extended-key scheme lives outside this repo).
+
+    VRF inputs default to the reference test examples' fixed seeds
+    (Test.Consensus.Shelley.Examples mkBytes 0/1); real-chain replay would
+    derive them from slot + epoch nonce."""
+    import hashlib
+
+    from .eras import byron_cbor as BY
+    from .eras import shelley_cbor as SC
+    raw = open(path, "rb").read()
+    for kind, parse in (("block", BY.parse_block),
+                        ("header", BY.parse_header)):
+        try:
+            parsed = parse(raw)
+        except (ValueError, IndexError, TypeError, KeyError):
+            continue
+        hdr = parsed.header if kind == "block" else parsed
+        what = "EBB" if hdr.is_ebb else "main"
+        loc = f"epoch {hdr.epoch}" if hdr.is_ebb \
+            else f"epoch {hdr.epoch} slot {hdr.slot}"
+        extra = f" txs {parsed.n_txs}" if kind == "block" else ""
+        print(f"byron {what} {kind}: {loc} magic {hdr.magic}{extra}",
+              file=out)
+        try:
+            print(f"header hash: {hdr.header_hash.hex()}", file=out)
+        except ValueError:
+            pass
+        return
+    backend = make_backend(backend_name, device)
+    a0 = hashlib.blake2b(b"\x00", digest_size=32).digest()
+    a1 = hashlib.blake2b(b"\x01", digest_size=32).digest()
+    try:
+        tx = SC.parse_tx(raw)
+    except (ValueError, IndexError, TypeError, KeyError):
+        tx = None
+    if tx is not None:
+        ok = SC.validate_tx(tx, backend)
+        print(f"shelley tx: txid {tx.body_hash.hex()} "
+              f"witnesses {len(tx.witnesses)}; "
+              f"witness crypto [{backend.name}]: "
+              f"{'ok' if ok else 'FAILED'}", file=out)
+        return
+    try:
+        blk = SC.parse_block(raw)
+    except ValueError:
+        blk = None
+    if blk is not None:
+        b = blk.header.body
+        print(f"shelley block: slot {b.slot} block_no {b.block_no} "
+              f"txs {len(blk.txs)} "
+              f"witnesses {sum(len(t.witnesses) for t in blk.txs)}",
+              file=out)
+        ok = SC.validate_block(blk, a0, a1, backend,
+                               check_body_size=False)
+        print(f"body hash: "
+              f"{'ok' if blk.computed_body_hash() == b.body_hash else 'BAD'}"
+              f"; full crypto [{backend.name}]: "
+              f"{'ok' if ok else 'FAILED'}", file=out)
+        return
+    hdr = SC.parse_header(raw)
+    b = hdr.body
+    print(f"shelley header: slot {b.slot} block_no {b.block_no} "
+          f"issuer {b.issuer_vkey.hex()[:16]} "
+          f"protover {b.protover_major}.{b.protover_minor}", file=out)
+    ok = SC.validate_header(hdr, a0, a1, backend)
+    print(f"full crypto [{backend.name}]: {'ok' if ok else 'FAILED'}",
+          file=out)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("db", help="DB directory (from db_synth or a node), "
+                               "or a raw real-Shelley header/block file "
+                               "with --analysis validate-real")
+    ap.add_argument("--analysis", default="validate",
+                    choices=["show-slot-block-no", "count-tx-outputs",
+                             "show-header-size", "validate",
+                             "validate-real"])
+    ap.add_argument("--validate", default="full",
+                    choices=["reapply", "full"],
+                    help="reapply: no crypto (snapshot-replay path); "
+                         "full: all proofs verified")
+    ap.add_argument("--backend", default="torch",
+                    choices=["ref", "openssl", "torch"])
+    ap.add_argument("--device", default=None,
+                    help="torch backend's device: the CUDA card unless "
+                         "'cpu' is given (the plain PyTorch versions)")
+    ap.add_argument("--window", type=int, default=256,
+                    help="blocks per device batch (full validation)")
+    ap.add_argument("--snapshot-every", type=int, default=0,
+                    metavar="SLOTS",
+                    help="checkpoint the verified ledger state every N "
+                         "slots during full validation (crash-"
+                         "consistent LedgerDB snapshots; 0 = never)")
+    ap.add_argument("--resume", action="store_true",
+                    help="restart full validation from the newest "
+                         "usable snapshot instead of genesis")
+    ap.add_argument("--read-ahead", type=int, default=4, metavar="W",
+                    help="prefetch bound in windows for the streaming "
+                         "engine (full validation)")
+    args = ap.parse_args(argv)
+
+    if args.analysis == "validate-real":
+        analyse_real_shelley(args.db, args.backend, sys.stdout,
+                             args.device)
+        return 0
+
+    db, rules, decode, cfg = load_db(args.db)
+    out = sys.stdout
+    if args.analysis == "show-slot-block-no":
+        analysis_show_slot_block_no(db, decode, out)
+    elif args.analysis == "count-tx-outputs":
+        analysis_count_tx_outputs(db, decode, out)
+    elif args.analysis == "show-header-size":
+        analysis_show_header_size(db, decode, out)
+    else:
+        analysis_validate(db, rules, decode, args.backend, args.validate,
+                          args.window, out,
+                          hdr_proofs=HEADER_PROOFS.get(cfg["protocol"], 2),
+                          db_dir=args.db,
+                          snapshot_every=args.snapshot_every,
+                          resume=args.resume,
+                          read_ahead=args.read_ahead, device=args.device)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,431 @@
+"""Byron-analog era: PBFT over a delegation-bearing UTxO ledger, with EBBs.
+
+Reference: ouroboros-consensus-byron/src/Ouroboros/Consensus/Byron/
+- Protocol.hs + Ledger/PBFT.hs — the PBFT protocol instance whose delegate
+  set comes from the LEDGER (genesis keys delegate block issuance via
+  heavyweight delegation certificates), not from static config.
+- Ledger/Block.hs + ouroboros-consensus Block/EBB.hs — epoch boundary
+  blocks: unsigned, bodyless blocks at the first slot of each epoch that
+  share their predecessor's block NUMBER (the envelope quirk handled in
+  consensus/header_validation.py).
+- Ledger/Ledger.hs — UTxO rules + delegation state transitions.
+
+The windowed signature-threshold arithmetic is the cheap sequential check;
+the per-header Ed25519 delegate signature and the per-body tx witnesses are
+the batchable proofs (PBFT.hs:226-302; SURVEY.md §2 batching gap).
+
+Ported from `ouroboros_tpu/eras/byron.py` (the port imports nothing of the
+JAX package). Copied whole.
+"""
+from __future__ import annotations
+
+import hashlib
+from dataclasses import dataclass, field, replace
+from typing import Optional, Sequence
+
+from ..chain.block import Point, point_of
+from ..consensus.headers import body_hash_of, make_header
+from ..consensus.ledger import LedgerError, LedgerRules
+from ..consensus.protocol import ConsensusProtocol, ProtocolError
+from ..crypto import ed25519_ref
+from ..crypto.backend import Ed25519Req
+from ..utils import cbor
+
+SIG_FIELD = "byron_sig"
+DELEGATE_FIELD = "byron_delegate_vk"
+EBB_FIELD = "ebb"
+
+
+def _b2b(data: bytes, n: int = 32) -> bytes:
+    return hashlib.blake2b(data, digest_size=n).digest()
+
+
+# ---------------------------------------------------------------------------
+# Ledger view: the delegation map
+# ---------------------------------------------------------------------------
+
+@dataclass
+class ByronLedgerView:
+    """genesis-key index -> current delegate verification key (the PBFT
+    ledger view, Byron/Ledger/PBFT.hs)."""
+    delegates: tuple                   # (delegate_vk, ...) by genesis index
+
+    def delegate_of(self, genesis_ix: int) -> Optional[bytes]:
+        if 0 <= genesis_ix < len(self.delegates):
+            return self.delegates[genesis_ix]
+        return None
+
+
+# ---------------------------------------------------------------------------
+# The protocol: PBFT with ledger-supplied delegates
+# ---------------------------------------------------------------------------
+
+class ByronPBft(ConsensusProtocol):
+    """PBFT (PBFT.hs:226-302) where `header.issuer` is a *genesis key
+    index* and the signing key is the delegate the ledger view maps it to.
+
+    ChainDepState = tuple of recent genesis-key indices (newest last),
+    bounded by `window` — PBFT/State.hs.
+    """
+
+    accepts_ebb = True                 # Byron is the EBB era (Block/EBB.hs)
+
+    def __init__(self, n_genesis_keys: int, threshold: float = 0.22,
+                 window: int = 100, k: int = 5, epoch_length: int = 100):
+        self.n = n_genesis_keys
+        self.threshold = threshold
+        self.window = window
+        self.security_param = k
+        self.epoch_length = epoch_length
+
+    def slot_leader(self, slot: int) -> int:
+        return slot % self.n
+
+    def _limit(self) -> int:
+        # strictly-greater-than comparison in the reference (PBFT.hs:279)
+        return int(self.threshold * self.window)
+
+    # -- state ---------------------------------------------------------------
+    def initial_chain_dep_state(self):
+        return ()
+
+    def reupdate_chain_dep_state(self, ticked, header, ledger_view):
+        if header.get(EBB_FIELD):
+            return ticked                  # EBBs are outside the protocol
+        signers = ticked + (header.issuer,)
+        return signers[-self.window:]
+
+    # -- checks --------------------------------------------------------------
+    def sequential_checks(self, ticked, header,
+                          ledger_view: ByronLedgerView):
+        if header.get(EBB_FIELD):
+            if header.get(SIG_FIELD) is not None or header.body_hash != \
+                    _EBB_BODY_HASH:
+                raise ProtocolError("Byron: malformed EBB")
+            # canBeEBB: EBBs only occupy the first slot of an epoch
+            if header.slot % self.epoch_length != 0:
+                raise ProtocolError(
+                    f"Byron: EBB at slot {header.slot}, not an epoch "
+                    f"boundary (epoch_length={self.epoch_length})")
+            return
+        if not (0 <= header.issuer < self.n):
+            raise ProtocolError(
+                f"Byron/PBFT: issuer {header.issuer} is not a genesis key")
+        if ledger_view.delegate_of(header.issuer) is None:
+            raise ProtocolError(
+                f"Byron/PBFT: genesis key {header.issuer} has no delegate")
+        claimed = header.get(DELEGATE_FIELD)
+        if claimed != ledger_view.delegate_of(header.issuer):
+            raise ProtocolError(
+                "Byron/PBFT: header's delegate key does not match the "
+                "ledger's delegation map")
+        if header.get(SIG_FIELD) is None:
+            raise ProtocolError("Byron/PBFT: header missing signature")
+        signers = (ticked + (header.issuer,))[-self.window:]
+        count = sum(1 for s in signers if s == header.issuer)
+        if count > max(1, self._limit()):
+            raise ProtocolError(
+                f"Byron/PBFT: signer {header.issuer} signed {count} of "
+                f"last {len(signers)} blocks, exceeds threshold "
+                f"{self.threshold}x{self.window}")
+
+    def extract_proofs(self, ticked, header, ledger_view: ByronLedgerView):
+        if header.get(EBB_FIELD):
+            return []
+        sig = header.get(SIG_FIELD)
+        vk = ledger_view.delegate_of(header.issuer)
+        if sig is None or vk is None:
+            return []
+        return [Ed25519Req(vk=vk, msg=header.bytes_dropping(SIG_FIELD),
+                           sig=sig)]
+
+    # -- leadership ----------------------------------------------------------
+    def check_is_leader(self, can_be_leader, slot, ticked, ledger_view):
+        """can_be_leader = genesis key index."""
+        return True if self.slot_leader(slot) == can_be_leader else None
+
+
+def byron_sign_header(delegate_sk: bytes, header):
+    """Sign a Byron header with the delegate key (the key the ledger's
+    delegation map currently points at)."""
+    h = header.with_fields(**{
+        DELEGATE_FIELD: ed25519_ref.public_key(delegate_sk)})
+    sig = ed25519_ref.sign(delegate_sk, h.bytes_dropping(SIG_FIELD))
+    return h.with_fields(**{SIG_FIELD: sig})
+
+
+# EBBs have an empty body by construction
+_EBB_BODY_HASH = body_hash_of(())
+
+
+def make_ebb(prev, epoch: int, epoch_length: int):
+    """Epoch boundary block header: first slot of `epoch`, no body, no
+    signature, block number NOT incremented (Block/EBB.hs)."""
+    slot = epoch * epoch_length
+    if prev is None:
+        h = make_header(None, slot, (), issuer=0)
+    else:
+        h = make_header(prev, slot, (), issuer=0)
+        h = replace(h, block_no=prev.block_no, _cache={})
+    return h.with_fields(**{EBB_FIELD: 1})
+
+
+# ---------------------------------------------------------------------------
+# The ledger: UTxO + heavyweight delegation
+# ---------------------------------------------------------------------------
+
+# certificates in tx bodies:
+#   ("dlg", genesis_ix_bytes(8, big-endian), new_delegate_vk)
+#     — witnessed by the GENESIS key of that index
+#   ("upd", epoch_bytes(8, big-endian), b"")
+#     — update proposal: adopt the next protocol version (i.e. hard-fork to
+#       the next era) at the given epoch; witnessed by a genesis key.
+#       This is the ledger-decided hard-fork trigger the HFC's
+#       transition_epoch callback reads (TriggerHardForkAtVersion analog).
+CERT_DLG = "dlg"
+CERT_UPDATE = "upd"
+
+
+@dataclass(frozen=True)
+class ByronTx:
+    """UTxO tx + optional delegation certs, Ed25519-witnessed over txid."""
+    inputs: tuple                      # (txid, ix)
+    outputs: tuple                     # (addr, amount)
+    certs: tuple = ()
+    witnesses: tuple = ()              # (vk, sig)
+
+    _cache: dict = field(default_factory=dict, repr=False, hash=False,
+                         compare=False)
+
+    def body_encode(self):
+        return [[list(i) for i in self.inputs],
+                [list(o) for o in self.outputs],
+                [list(c) for c in self.certs]]
+
+    @property
+    def txid(self) -> bytes:
+        c = self._cache
+        if "id" not in c:
+            c["id"] = _b2b(cbor.dumps(self.body_encode()))
+        return c["id"]
+
+    def encode(self):
+        return self.body_encode() + [[[vk, sig] for vk, sig in self.witnesses]]
+
+    @classmethod
+    def decode(cls, obj) -> "ByronTx":
+        outputs = tuple((bytes(a), int(m)) for a, m in obj[1])
+        if any(m < 0 for _a, m in outputs):
+            raise ValueError("negative output amount")
+        return cls(
+            tuple((bytes(t), int(i)) for t, i in obj[0]),
+            outputs,
+            tuple((str(c[0]), bytes(c[1]), bytes(c[2])) for c in obj[2]),
+            tuple((bytes(vk), bytes(sig)) for vk, sig in obj[3]))
+
+
+def make_byron_tx(inputs: Sequence, outputs: Sequence, certs: Sequence,
+                  signing_keys: Sequence[bytes]) -> ByronTx:
+    tx = ByronTx(tuple(tuple(i) for i in inputs),
+                 tuple(tuple(o) for o in outputs),
+                 tuple(tuple(c) for c in certs))
+    wits = tuple((ed25519_ref.public_key(sk), ed25519_ref.sign(sk, tx.txid))
+                 for sk in signing_keys)
+    return replace(tx, witnesses=wits)
+
+
+@dataclass(frozen=True)
+class ByronLedgerState:
+    utxo: tuple                        # sorted ((txid, ix, addr, amount), ...)
+    delegates: tuple                   # delegate_vk per genesis index
+    slot: int
+    tip: Point
+    update_epoch: int = -1             # adopted hard-fork epoch, -1 = none
+
+    def utxo_dict(self) -> dict:
+        return {(t, i): (a, m) for t, i, a, m in self.utxo}
+
+    def state_hash(self) -> bytes:
+        enc = cbor.dumps([
+            [[t, i, a, m] for t, i, a, m in self.utxo],
+            list(self.delegates), self.slot, self.tip.encode(),
+            self.update_epoch])
+        return _b2b(enc)
+
+
+def byron_transition_epoch(state: ByronLedgerState):
+    """transition_epoch callback for the HFC Era record: the epoch the
+    ledger's adopted update proposal names, if any."""
+    return state.update_epoch if state.update_epoch >= 0 else None
+
+
+def _freeze_utxo(utxo: dict) -> tuple:
+    return tuple(sorted((t, i, a, m) for (t, i), (a, m) in utxo.items()))
+
+
+class ByronLedger(LedgerRules):
+    """UTxO + delegation rules (Byron/Ledger/Ledger.hs analog).
+
+    genesis_vks: the fixed genesis keys; each starts self-delegated unless
+    `initial_delegates` overrides.  A ("dlg", ix, vk) certificate witnessed
+    by genesis key ix re-points its delegate (heavyweight delegation).
+    """
+
+    GENESIS_TXID = b"\x00" * 32
+
+    def __init__(self, genesis: dict, genesis_vks: Sequence[bytes],
+                 initial_delegates: Optional[Sequence[bytes]] = None):
+        self.genesis = dict(genesis)
+        self.genesis_vks = tuple(genesis_vks)
+        self.initial_delegates = tuple(
+            initial_delegates if initial_delegates is not None
+            else genesis_vks)
+
+    def initial_state(self) -> ByronLedgerState:
+        utxo = {(self.GENESIS_TXID, ix): (addr, amount)
+                for ix, (addr, amount) in enumerate(
+                    sorted(self.genesis.items()))}
+        return ByronLedgerState(_freeze_utxo(utxo), self.initial_delegates,
+                                -1, Point.genesis())
+
+    def tip(self, state: ByronLedgerState) -> Point:
+        return state.tip
+
+    def tick(self, state: ByronLedgerState, slot: int) -> ByronLedgerState:
+        return replace(state, slot=slot)
+
+    def ledger_view(self, state: ByronLedgerState) -> ByronLedgerView:
+        return ByronLedgerView(state.delegates)
+
+    # -- block application ---------------------------------------------------
+    def _apply_txs(self, state: ByronLedgerState, block) -> ByronLedgerState:
+        utxo = state.utxo_dict()
+        delegates = list(state.delegates)
+        update_epoch = state.update_epoch
+        for tx in block.body:
+            if len(set(tx.inputs)) != len(tx.inputs):
+                raise LedgerError(
+                    f"tx {tx.txid.hex()[:12]} has duplicate inputs")
+            spent = 0
+            for txid, ix in tx.inputs:
+                if (txid, ix) not in utxo:
+                    raise LedgerError(f"missing input {txid.hex()[:12]}#{ix}")
+                spent += utxo[(txid, ix)][1]
+            if any(m < 0 for _a, m in tx.outputs):
+                raise LedgerError(
+                    f"tx {tx.txid.hex()[:12]} has a negative output")
+            if sum(m for _a, m in tx.outputs) > spent:
+                raise LedgerError(f"tx {tx.txid.hex()[:12]} overspends")
+            for kind, arg, vk in tx.certs:
+                if kind == CERT_DLG:
+                    gix = int.from_bytes(arg, "big")
+                    if not 0 <= gix < len(delegates):
+                        raise LedgerError(f"delegation for unknown genesis "
+                                          f"key {gix}")
+                    delegates[gix] = vk
+                elif kind == CERT_UPDATE:
+                    update_epoch = int.from_bytes(arg, "big")
+                else:
+                    raise LedgerError(f"unknown certificate kind {kind!r}")
+            for txid, ix in tx.inputs:
+                del utxo[(txid, ix)]
+            for ix, (addr, amount) in enumerate(tx.outputs):
+                utxo[(tx.txid, ix)] = (addr, amount)
+        return replace(state, utxo=_freeze_utxo(utxo),
+                       delegates=tuple(delegates), tip=point_of(block),
+                       update_epoch=update_epoch)
+
+    def check_tx_witnesses(self, state: ByronLedgerState,
+                           tx: ByronTx) -> None:
+        utxo = state.utxo_dict()
+        wit_vks = {vk for vk, _ in tx.witnesses}
+        for txid, ix in tx.inputs:
+            if (txid, ix) in utxo and utxo[(txid, ix)][0] not in wit_vks:
+                raise LedgerError(
+                    f"tx {tx.txid.hex()[:12]} spends without a witness")
+        for kind, gix_raw, _vk in tx.certs:
+            if kind == CERT_DLG:
+                gix = int.from_bytes(gix_raw, "big")
+                if not 0 <= gix < len(self.genesis_vks) \
+                        or self.genesis_vks[gix] not in wit_vks:
+                    raise LedgerError(
+                        "delegation certificate without the genesis-key "
+                        "witness")
+            elif kind == CERT_UPDATE:
+                if not any(vk in wit_vks for vk in self.genesis_vks):
+                    raise LedgerError(
+                        "update proposal without a genesis-key witness")
+
+    def sequential_checks(self, ticked: ByronLedgerState, block) -> None:
+        for tx in block.body:
+            self.check_tx_witnesses(ticked, tx)
+
+    def extract_proofs(self, ticked: ByronLedgerState, block) -> list:
+        return [Ed25519Req(vk=vk, msg=tx.txid, sig=sig)
+                for tx in block.body for vk, sig in tx.witnesses]
+
+    def apply_block(self, ticked: ByronLedgerState, block,
+                    backend=None) -> ByronLedgerState:
+        from ..crypto.backend import default_backend
+        backend = backend or default_backend()
+        self.sequential_checks(ticked, block)
+        reqs = self.extract_proofs(ticked, block)
+        if reqs:
+            if not all(backend.verify_ed25519_batch(reqs)):
+                raise LedgerError(
+                    f"invalid tx witness in block at slot {block.slot}")
+        return self._apply_txs(ticked, block)
+
+    def reapply_block(self, ticked: ByronLedgerState,
+                      block) -> ByronLedgerState:
+        return self._apply_txs(ticked, block)
+
+    # -- mempool support -----------------------------------------------------
+    def apply_tx(self, state: ByronLedgerState, tx: ByronTx,
+                 backend=None) -> ByronLedgerState:
+        blk = _OneTxBlock(tx, state.tip)
+        self.check_tx_witnesses(state, tx)
+        from ..crypto.backend import default_backend
+        ok = (backend or default_backend()).verify_ed25519_batch(
+            self.extract_proofs(state, blk))
+        if not all(ok):
+            raise LedgerError(f"tx {tx.txid.hex()[:12]}: bad witness")
+        return replace(self._apply_txs(state, blk), tip=state.tip)
+
+
+class _OneTxBlock:
+    def __init__(self, tx: ByronTx, tip: Point):
+        self.body = (tx,)
+        self.slot = tip.slot
+        self.hash = tip.hash
+        self.header = self
+
+
+# ---------------------------------------------------------------------------
+# network setup helper
+# ---------------------------------------------------------------------------
+
+def byron_genesis_setup(n_keys: int, epoch_length: int = 100,
+                        threshold: float = 0.5, window: int = 10,
+                        k: int = 5, funds_per_key: int = 1000,
+                        seed: bytes = b"byron-net"):
+    """Protocol + ledger + per-genesis-key dicts (genesis_sk, delegate_sk,
+    addr keys) for an n-key PBFT network, all keys self-delegated."""
+    nodes, genesis, genesis_vks = [], {}, []
+    for i in range(n_keys):
+        tag = seed + b":%d" % i
+        genesis_sk = _b2b(b"gen:" + tag)
+        delegate_sk = _b2b(b"dlg:" + tag)
+        addr_sk = _b2b(b"addr:" + tag)
+        addr = ed25519_ref.public_key(addr_sk)
+        genesis_vks.append(ed25519_ref.public_key(genesis_sk))
+        genesis[addr] = funds_per_key
+        nodes.append({"genesis_sk": genesis_sk, "delegate_sk": delegate_sk,
+                      "addr_sk": addr_sk, "addr": addr, "index": i})
+    protocol = ByronPBft(n_keys, threshold=threshold, window=window, k=k,
+                         epoch_length=epoch_length)
+    # every key initially delegates to its own delegate key
+    ledger = ByronLedger(genesis, genesis_vks,
+                         [ed25519_ref.public_key(n["delegate_sk"])
+                          for n in nodes])
+    return protocol, ledger, nodes

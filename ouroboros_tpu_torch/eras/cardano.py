@@ -1,0 +1,182 @@
+"""The Cardano-analog composition: Byron(PBFT) -> Shelley-family(TPraos)
+through the hard-fork combinator.
+
+Reference: ouroboros-consensus-cardano/src/Ouroboros/Consensus/Cardano/
+- Block.hs:161-186  — `CardanoEras c = [Byron, Shelley, ...]` and the HFC
+  block over them; here `cardano_eras` builds the Era list.
+- CanHardFork.hs:365-422 — the Byron->Shelley translations:
+  `translateLedgerStateByronToShelley` (UTxO carried over, Shelley state
+  initialised from the Shelley genesis staking) and
+  `translateChainDepStateByronToShelley` (fresh TPraos state seeded from
+  the Shelley genesis nonce).
+- Cardano/Node.hs `protocolInfoCardano` — the per-era configs assembled in
+  one place; here `cardano_setup`.
+
+The hard-fork trigger is ledger-decided, as in the reference
+(TriggerHardForkAtVersion): a Byron update-proposal certificate sets
+`update_epoch`, which `byron_transition_epoch` exposes to the combinator's
+Summary (eras/byron.py CERT_UPDATE).
+
+Ported from `ouroboros_tpu/eras/cardano.py` (the port imports nothing of the
+JAX package). Copied whole.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+from ..consensus.hardfork import Era, EraParams, hard_fork_rules
+from ..consensus.hardfork.combinator import ERA_FIELD
+from ..consensus.headers import ProtocolBlock, ProtocolHeader
+from ..crypto import ed25519_ref
+from .byron import (
+    ByronLedger, ByronLedgerState, ByronPBft, ByronTx,
+    byron_genesis_setup, byron_transition_epoch,
+)
+from .shelley import (
+    ShelleyLedger, ShelleyLedgerState, ShelleyTx, TPraos, TPraosConfig,
+    TPraosState, shelley_genesis_setup,
+)
+
+BYRON, SHELLEY, ALLEGRA, MARY = 0, 1, 2, 3
+
+
+def trigger_at_epoch(epoch: int):
+    """TriggerHardForkAtEpoch analog (the reference's protocolInfoCardano
+    per-era trigger, Cardano/Node.hs): the era's exit epoch is fixed by
+    configuration rather than read from on-chain votes — the mechanism
+    testnets (and our synthetic chains) use for the intra-Shelley forks."""
+    return lambda _ledger_state: epoch
+
+
+def translate_ledger_byron_to_shelley(shelley_ledger: ShelleyLedger):
+    """CanHardFork.hs:365-422 ledger translation, closed over the Shelley
+    genesis config (protocolInfoCardano's ShelleyGenesis): the Byron UTxO
+    crosses unchanged (multi-asset column empty), pools/delegations start
+    from the genesis staking so leader election works from the boundary."""
+    cfg = shelley_ledger.config
+
+    def translate(b: ByronLedgerState) -> ShelleyLedgerState:
+        from .shelley import UtxoMap
+        utxo = UtxoMap.from_items((t, i, a, m, ()) for t, i, a, m in b.utxo)
+        delegs = tuple(sorted(shelley_ledger.initial_delegs.items()))
+        pools = tuple(sorted(shelley_ledger.initial_pools.items()))
+        snap = ShelleyLedger._stake_distr(utxo, delegs, pools)
+        # the combinator ticked the Byron ledger to the boundary slot (the
+        # first slot of the Shelley era)
+        return ShelleyLedgerState(
+            utxo=utxo, delegs=delegs, pools=pools,
+            epoch=max(b.slot, 0) // cfg.epoch_length,
+            snap_mark=snap, snap_set=snap,
+            slot=b.slot, tip=b.tip)
+    return translate
+
+
+def translate_chain_dep_byron_to_shelley(genesis_seed: bytes):
+    """Fresh TPraos state at the boundary, nonces seeded from the Shelley
+    genesis (translateChainDepStateByronToShelley; the reference derives
+    the initial nonce from the Shelley genesis hash)."""
+    def translate(_pbft_state) -> TPraosState:
+        return TPraosState.genesis(genesis_seed)
+    return translate
+
+
+def cardano_eras(byron_protocol: ByronPBft, byron_ledger: ByronLedger,
+                 shelley_protocol: TPraos, shelley_ledger: ShelleyLedger,
+                 byron_slot_length: float = 1.0,
+                 shelley_slot_length: float = 0.5,
+                 allegra_epoch: Optional[int] = None,
+                 mary_epoch: Optional[int] = None) -> list:
+    """The era list (CardanoEras analog, Cardano/Block.hs:161-186:
+    Byron, Shelley, Allegra, Mary).  Epoch lengths come from the era
+    configs; slot lengths may differ across the Byron fork (the mainnet
+    20s -> 1s change, scaled).
+
+    The intra-Shelley hops (CanHardFork.hs:365-422) keep the TPraos
+    protocol and carry ledger + chain-dep state across unchanged (our
+    ShelleyLedgerState is one type for the whole family; the rules object
+    gates the per-era tx features: validity intervals from Allegra,
+    multi-asset from Mary).  They fire at configured epochs
+    (trigger_at_epoch); pass None to stop the ladder earlier."""
+    if mary_epoch is not None and allegra_epoch is None:
+        raise ValueError("mary_epoch requires allegra_epoch: the era "
+                         "ladder cannot skip Allegra")
+    s_params = EraParams(shelley_protocol.config.epoch_length,
+                         shelley_slot_length)
+    eras = [
+        Era("byron", byron_protocol, byron_ledger,
+            EraParams(byron_protocol.epoch_length, byron_slot_length),
+            transition_epoch=byron_transition_epoch,
+            translate_ledger=translate_ledger_byron_to_shelley(
+                shelley_ledger),
+            translate_chain_dep=translate_chain_dep_byron_to_shelley(
+                shelley_protocol.genesis_seed)),
+        Era("shelley", shelley_protocol, shelley_ledger, s_params,
+            transition_epoch=(trigger_at_epoch(allegra_epoch)
+                              if allegra_epoch is not None else None)),
+    ]
+    if allegra_epoch is not None:
+        eras.append(Era(
+            "allegra", shelley_protocol, shelley_ledger.with_era("allegra"),
+            s_params,
+            transition_epoch=(trigger_at_epoch(mary_epoch)
+                              if mary_epoch is not None else None)))
+        if mary_epoch is not None:
+            eras.append(Era(
+                "mary", shelley_protocol, shelley_ledger.with_era("mary"),
+                s_params))
+    return eras
+
+
+def cardano_setup(n_nodes: int, epoch_length: int = 20,
+                  shelley_config: Optional[TPraosConfig] = None,
+                  seed: bytes = b"cardano-net",
+                  funds_per_key: int = 1000,
+                  allegra_epoch: Optional[int] = None,
+                  mary_epoch: Optional[int] = None):
+    """Keys + eras for an n-node network that can cross the fork.
+
+    Every node holds both a Byron genesis/delegate key pair and a Shelley
+    pool (cold/VRF/KES) whose staking address is the SAME address funded in
+    the Byron genesis — so the Byron UTxO that crosses the boundary backs
+    the Shelley stake distribution (the genesis-staking bootstrap).
+
+    Returns (eras, rules, nodes) where nodes[i] carries byron/shelley
+    credentials for forging."""
+    if shelley_config is None:
+        shelley_config = TPraosConfig(
+            k=8, epoch_length=epoch_length, slots_per_kes_period=50,
+            kes_depth=5, max_kes_evolutions=30)
+    b_protocol, _b_ledger, b_nodes = byron_genesis_setup(
+        n_nodes, epoch_length=epoch_length, threshold=0.9, window=10,
+        k=shelley_config.k, funds_per_key=funds_per_key, seed=seed)
+    s_protocol, s_ledger_tmp, s_pools = shelley_genesis_setup(
+        n_nodes, shelley_config, stake_per_pool=funds_per_key,
+        seed=seed + b":shelley")
+    # fund the Shelley pool-owner addresses in the BYRON genesis, so the
+    # crossing UTxO backs the Shelley stake snapshots
+    genesis = {p["addr"]: funds_per_key for p in s_pools}
+    genesis_vks = [ed25519_ref.public_key(n["genesis_sk"]) for n in b_nodes]
+    b_ledger = ByronLedger(
+        genesis, genesis_vks,
+        [ed25519_ref.public_key(n["delegate_sk"]) for n in b_nodes])
+    s_ledger = ShelleyLedger(
+        genesis, shelley_config,
+        initial_pools=dict(s_ledger_tmp.initial_pools),
+        initial_delegs=dict(s_ledger_tmp.initial_delegs))
+    eras = cardano_eras(b_protocol, b_ledger, s_protocol, s_ledger,
+                        allegra_epoch=allegra_epoch, mary_epoch=mary_epoch)
+    nodes = []
+    for i in range(n_nodes):
+        nodes.append({**b_nodes[i], **s_pools[i], "index": i})
+    return eras, hard_fork_rules(eras), nodes
+
+
+def cardano_block_decode(obj) -> ProtocolBlock:
+    """Decode a block with the era-appropriate tx decoder, dispatching on
+    the header's era tag (the nested-content role of the reference's
+    era-tagged decoders, Block/NestedContent.hs)."""
+    header = ProtocolHeader.decode(obj[0])
+    era = header.get(ERA_FIELD, BYRON)
+    tx_decode = ByronTx.decode if era == BYRON else ShelleyTx.decode
+    body = tuple(tx_decode(t) for t in obj[1])
+    return ProtocolBlock(header, body)

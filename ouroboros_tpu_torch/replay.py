@@ -46,20 +46,44 @@ def n_proofs(blocks) -> int:
     return sum(4 + sum(len(tx.witnesses) for tx in b.body) for b in blocks)
 
 
-def _span_seconds(roots) -> dict:
-    """Per name in SPANS, one duration a window in order: the root spans
-    of the producer (host_seq, submit) and of the consumer (drain), and
-    the fill and fold seconds inside each submit."""
-    out = {name: [] for name in SPANS}
+# the streaming replay's own spans, on its prefetch thread
+# (storage/stream.py): one chunk's read, and the CBOR decoding of its blocks
+DISK_SPANS = ("stream.read", "stream.decode")
+
+
+def _span_seconds(roots, names=SPANS) -> dict:
+    """Per name in `names`, one duration a root span in order: the root
+    spans of the producer (host_seq, submit), of the consumer (drain)
+    and of the prefetch thread (read, decode), and the fill and fold
+    seconds inside each submit."""
+    out = {name: [] for name in names}
     for root in sorted(roots, key=lambda r: r.t0):
         if root.name not in out:
             continue
         out[root.name].append(root.duration)
         if root.name == "window.submit":
             for name in ("precompute.fill", "window.fold"):
-                out[name].append(sum(s.duration for s in root.walk()
-                                     if s.name == name))
+                if name in out:
+                    out[name].append(sum(s.duration for s in root.walk()
+                                         if s.name == name))
     return out
+
+
+def recording(fn, names=SPANS) -> tuple:
+    """fn() with span recording on: (its result, its seconds, the span
+    seconds of `names`, as `_span_seconds` gives them)."""
+    rec = _spans.RECORDER
+    was_on = rec.enabled
+    rec.drain()
+    rec.enable()
+    try:
+        t0 = time.perf_counter()
+        out = fn()
+        seconds = time.perf_counter() - t0
+    finally:
+        if not was_on:
+            rec.disable()
+    return out, seconds, _span_seconds(rec.drain(), names)
 
 
 def replay_once(ext, blocks, backend, window: int) -> dict:
@@ -68,19 +92,9 @@ def replay_once(ext, blocks, backend, window: int) -> dict:
     (`result`), the seconds, blocks/s, proofs/s and the per-window span
     seconds (`spans`: name -> list)."""
     GLOBAL_BETA_CACHE.clear()
-    rec = _spans.RECORDER
-    was_on = rec.enabled
-    rec.drain()
-    rec.enable()
-    try:
-        t0 = time.perf_counter()
-        res = replay_blocks_pipelined(ext, blocks, ext.initial_state(),
-                                      backend=backend, window=window)
-        seconds = time.perf_counter() - t0
-    finally:
-        if not was_on:
-            rec.disable()
-    spans = _span_seconds(rec.drain())
+    res, seconds, spans = recording(
+        lambda: replay_blocks_pipelined(ext, blocks, ext.initial_state(),
+                                        backend=backend, window=window))
     return {"result": res, "seconds": seconds,
             "blocks_per_s": res.n_valid / seconds,
             "proofs_per_s": n_proofs(blocks[:res.n_valid]) / seconds,

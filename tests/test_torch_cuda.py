@@ -186,3 +186,31 @@ def test_replay_of_the_fixture_chain_on_the_card(dev):
         res = replay_blocks_pipelined(ext, bad, ext.initial_state(),
                                       backend=backend, window=8)
         assert (res.all_valid, res.n_valid) == (False, 13)
+
+
+def test_disk_replay_of_a_cardano_db_on_the_card(dev, tmp_path, capsys):
+    """A 60-block Byron->Shelley DB written by the port's db_synth and
+    replayed from disk by its db_analyser on the card ends at the state
+    `--validate reapply` reaches, through the four window kernels."""
+    import json
+
+    from ouroboros_tpu_torch import db_analyser, db_synth
+    from ouroboros_tpu_torch.crypto.backend import GLOBAL_BETA_CACHE
+
+    d = str(tmp_path / "db")
+    assert db_synth.main(["--out", d, "--protocol", "cardano", "--eras",
+                          "byron-shelley", "--blocks", "60",
+                          "--epoch-length", "10", "--chunk-size", "10",
+                          "--txs-per-block", "1"]) == 0
+    capsys.readouterr()
+    assert db_analyser.main([d, "--validate", "reapply"]) == 0
+    want = json.loads(capsys.readouterr().out)
+    GLOBAL_BETA_CACHE.clear()
+    K.reset_launches()
+    assert db_analyser.main([d, "--backend", "torch", "--window", "16"]) == 0
+    got = json.loads(capsys.readouterr().out)
+    assert got["backend"] == "torch" and got["blocks"] == 60
+    assert got["state_hash"] == want["state_hash"]
+    assert got["stream"]["era_crossings"] == 1
+    assert all(K.LAUNCHES[k] > 0 for k in ("ed25519_split", "vrf_verify",
+                                            "gamma8", "kes_hash"))

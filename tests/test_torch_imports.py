@@ -32,7 +32,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 47          # every module of every slice imported
+    assert n_modules >= 64          # every module of every slice imported
 
 
 def _require_no_card():
@@ -113,3 +113,14 @@ def test_microbench_field_raises_without_a_card():
     with pytest.raises(RuntimeError):
         microbench_field.main(["--e2e", "--n-ed", "1", "--n-vrf", "1",
                                "--n-kes", "1", "--reps", "1"])
+
+
+def test_db_analyser_torch_backend_raises_without_a_card():
+    _require_no_card()
+    from ouroboros_tpu_torch import db_analyser
+    with pytest.raises(RuntimeError):
+        db_analyser.make_backend("torch")
+    with pytest.raises(RuntimeError):
+        db_analyser.make_backend("torch", "cuda")
+    assert db_analyser.make_backend("torch", "cpu").device.type == "cpu"
+    assert db_analyser.make_backend("ref").name == "cpu-ref"
