@@ -78,11 +78,25 @@ the CUDA toolkit.  Phases:
    witness byte of block 300 flipped in its chunk and the block's CRC
    recomputed, which must stop at block 300 with a proof error, every
    window it submitted finished;
-7. the standalone batch-verify path: `perf_probe --old` at 4096 Ed25519
+7. the serve path (a caught-up node): ed25519_split, vrf_verify and
+   kes_hash held exactly against their plain versions on the first 128
+   and 256 lanes of phase 2's inputs (a flush's widths); then
+   `serve.sim_legs` (bench.py's three modeled legs in virtual time, its
+   gates) and `serve.card_legs` on phase 5's chain: VerifyService over a
+   fresh TorchBackend under the real-clock IO runtime, CppBackend the
+   fallback, the break-even table calibrated first; the saturated
+   (about 4,000 requests), light-load, back-pressure and mempool legs,
+   which must pass `serve.check_card`: every verdict CppBackend's (a
+   sample CpuRefBackend's), no dispatch error, no device batch without a
+   launch, the three kernels launched in the saturated leg, no device
+   batch under light load, back-pressure waits with every verdict
+   delivered, the mempool's admissions the synchronous path's, no leaked
+   task;
+8. the standalone batch-verify path: `perf_probe --old` at 4096 Ed25519
    and 2048 VRF lanes (split and full Ed25519 verify, VRF verify, betas;
    each row asserts that every lane verifies), where ed25519_verify and
    the three kernels the probe drives must launch;
-8. the field microbenchmark path: field_chain, field_chain_lp (mul and
+9. the field microbenchmark path: field_chain, field_chain_lp (mul and
    sqr), point_chain and point_chain_x4 each held exactly against its
    plain version on the card for every operation at both of its chain
    lengths, at every lane count the microbenchmark runs (4096, the JAX
@@ -92,15 +106,16 @@ the CUDA toolkit.  Phases:
    --e2e` at 4096 lanes (one warp an SM for the one-thread kernels) and
    `--ops` at 65536 (sixteen), where each of the four must launch; last,
    each of the nine kernels' own device time from torch.profiler
-   (`device_ms`, median of 7 after two warm-ups), and kes_hash's at 65536
-   lanes too, after every path whose rate is measured, so that no
-   profiling runs before them.  Every
+   (`device_ms`, median of 7 after two warm-ups), kes_hash's at 65536
+   lanes too, and the three serve kernels' at 128 and 256 lanes
+   (`serve_device_ms`), after every path whose rate is measured, so
+   that no profiling runs before them.  Every
    per-operation time and device_ms must come from a profiler trace that
    held exactly the kernel's launches, never from CUDA events, which hold
    host time.  After them one more replay of phase 5's valid chain runs
    under torch.profiler for the card's busy seconds: its some hundred
    thousand traced kernels could reach a later trace, so it comes last;
-9. a `main_path` JSON line, a `microbench_field` JSON line (the
+10. a `main_path` JSON line, a `microbench_field` JSON line (the
    per-operation rows at both lane counts), a `replay` JSON line
    (blocks/s, proofs/s, the producer's host_seq and submit seconds with
    the fill and fold inside it, and the consumer's drain seconds, per
@@ -110,13 +125,17 @@ the CUDA toolkit.  Phases:
    the producer, the consumer and the prefetch thread's reads and
    decoding, and the launches per kernel; the snapshot, resume, kill,
    Cardano and tampered runs; the Cardano DB's cuts; the card), a
-   `kernels` JSON line
+   `serve` JSON line (`sim` and `card`: per leg requests, proofs/s,
+   makespan, p50/p95/p99 latency, deadline misses, the service's stats
+   and batch-size and batch-bucket histograms, launches, leaked tasks;
+   the break-even table; the card), a `kernels` JSON line
    (each
    kernel's launches are those of its path: the main path's, the
    probe's for ed25519_verify, the microbenchmark's for the chains, and
    for the four window kernels the replay's first run's as
    `replay_launches` and the first native disk replay's as
-   `disk_replay_launches`; its
+   `disk_replay_launches`; every kernel's launches in the serve path's
+   saturated leg as `serve_launches`; its
    launch shape as threads_per_lane and block; kes_hash's 65536-lane
    row under `wide`), the card line, and as
    the last line {"ok": true, "device": {...}}.
@@ -191,6 +210,12 @@ DISK_TAMPER_AT = 300         # the block whose witness is flipped on disk
 CARDANO_BLOCKS = 2100
 CARDANO_EPOCH = 500
 CARDANO_CHUNK = 100
+# the serve path: a flush's lane counts (the padding ladder's first two
+# rungs at max_batch 256), bench.py's serve seed, the saturated leg's
+# full scale
+SERVE_LANES = (128, 256)
+SERVE_SEED = 7
+SERVE_SCALE = 1.0
 
 
 def log(*a):
@@ -680,6 +705,54 @@ def disk_phase(card: str, ext, chain, want_hash: bytes,
         "card": card}
 
 
+def serve_phase(card: str, ext, chain, inputs: dict, max_err: dict) -> dict:
+    """Phase 7: the serve path's kernels at a flush's widths against their
+    plain versions, then serve.py's sim legs and its card legs on phase
+    5's chain, which must pass serve.check_card.  Returns the `serve`
+    line's dict."""
+    import torch
+
+    from ouroboros_tpu_torch import serve
+    from ouroboros_tpu_torch.crypto import kernels as K
+    from ouroboros_tpu_torch.crypto.torch_backend import TorchBackend
+
+    for name in serve.SERVE_KERNELS:
+        for n in SERVE_LANES:
+            args = [a[..., :n].contiguous() for a in inputs[name]]
+            got = getattr(K, name)(*args)
+            want = K.KERNELS[name].plain(*args)
+            torch.cuda.synchronize()
+            err = int((got.long() - want.long()).abs().max())
+            max_err[name] = max(max_err[name], err)
+            if tuple(got.shape) != tuple(want.shape) or err != 0:
+                raise AssertionError(f"{name}: kernel != plain version on "
+                                     f"{n} lanes (max abs err {err})")
+        log(f"{name}: kernel == plain version on "
+            f"{' and '.join(map(str, SERVE_LANES))} lanes (tolerance 0)")
+    t = time.perf_counter()
+    sim = serve.sim_legs(SERVE_SEED, SERVE_SCALE)
+    if not sim["ok"]:
+        raise AssertionError(f"serve sim legs failed their gates: {sim}")
+    sat = sim["saturated"]
+    log(f"serve sim: saturated {sat['requests']} requests, makespan "
+        f"{sat['makespan_secs']} s, {sat['vs_unbatched_cpu']}x the "
+        f"unbatched CPU; light load {sim['light_load']['device_batches']} "
+        f"device batches; back-pressure waits "
+        f"{sim['backpressure']['backpressure_waits']} "
+        f"({time.perf_counter() - t:.3f} s)")
+    t = time.perf_counter()
+    out = serve.card_legs(ext, chain, TorchBackend(), SERVE_SEED,
+                          SERVE_SCALE, log=log)
+    bad = serve.check_card(out, on_card=True)
+    if bad:
+        raise AssertionError(f"serve card legs: {bad}")
+    seconds = time.perf_counter() - t
+    log(f"serve card: every check passed ({seconds:.3f} s); CppBackend "
+        f"verdicts {out['cpp_verdicts_s']:.3f} s for {out['requests']} "
+        f"requests, CpuRef sample of {out['cpu_ref_sample']} equal")
+    return {"sim": sim, "card": out, "seconds": seconds, "card_name": card}
+
+
 def replay_profiled(ext, chain) -> dict:
     """One more replay of the valid chain under torch.profiler, apart from
     the timed runs: the card's busy seconds and the kernels that took
@@ -714,7 +787,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
         from ouroboros_tpu_torch import device as D
-        from ouroboros_tpu_torch import (microbench_field, perf_probe,
+        from ouroboros_tpu_torch import (microbench_field, perf_probe, serve,
                                          validate, windowgen)
         from ouroboros_tpu_torch.crypto import (
             blake2b as B2, ed25519 as E, ed25519_ref, edwards as ed,
@@ -1044,7 +1117,10 @@ def main() -> int:
     # -- 6. the disk replay ---------------------------------------------------
     dr = disk_phase(card, *replayed)
 
-    # -- 7. the standalone batch-verify path --------------------------------
+    # -- 7. the serve path ----------------------------------------------------
+    sv = serve_phase(card, *replayed[:2], inputs, max_err)
+
+    # -- 8. the standalone batch-verify path --------------------------------
     K.reset_launches()
     t = time.perf_counter()
     probe_rows = perf_probe.main(PROBE_ARGS)
@@ -1056,7 +1132,7 @@ def main() -> int:
         raise AssertionError(f"kernels not launched on the probe's path: "
                              f"{missing}")
 
-    # -- 8. the field microbenchmark path -----------------------------------
+    # -- 9. the field microbenchmark path -----------------------------------
     # every (lanes, op, k) its runs launch, and the first n - 3 lanes of
     # each lane count, exactly against the plain versions; a sample of the
     # JAX shape's lanes against Python integers
@@ -1114,6 +1190,21 @@ def main() -> int:
             lambda: wrappers[name](*args), f"{name}_kernel")
         log(f"{name}: {entry['device_ms']:.4f} ms device "
             f"({entry['device_ms_from']}), {entry['ms']:.4f} ms events")
+    # the serve path's kernels at a flush's widths
+    for entry in report:
+        name = entry["name"]
+        if name not in serve.SERVE_KERNELS:
+            continue
+        entry["serve_device_ms"], entry["serve_device_ms_from"] = {}, {}
+        for n in SERVE_LANES:
+            args = [a[..., :n].contiguous() for a in inputs[name]]
+            ms, src = D.kernel_ms(lambda: wrappers[name](*args),
+                                  f"{name}_kernel")
+            entry["serve_device_ms"][str(n)] = ms
+            entry["serve_device_ms_from"][str(n)] = src
+        log(f"{name}: device ms at " + ", ".join(
+            f"{n} lanes {ms:.4f}" for n, ms
+            in entry["serve_device_ms"].items()))
     wide_ms, wide_from = D.kernel_ms(lambda: K.kes_hash(*kes_wide),
                                      "kes_hash_kernel")
     kes_entry = next(e for e in report if e["name"] == "kes_hash")
@@ -1133,6 +1224,9 @@ def main() -> int:
                 and not from_profiler(r["time_from"])]
     not_dev += [e["name"] for e in report
                 if not from_profiler(e["device_ms_from"])]
+    not_dev += [f"{e['name']} at {n} lanes" for e in report
+                for n, src in e.get("serve_device_ms_from", {}).items()
+                if not from_profiler(src)]
     if not from_profiler(wide_from):
         not_dev.append(f"kes_hash at {KES_WIDE} lanes")
     if not_dev:
@@ -1140,10 +1234,12 @@ def main() -> int:
                              f"{not_dev}")
     rp["profiled"] = replay_profiled(*replayed[:2])
 
-    # -- 9. report ------------------------------------------------------------
+    # -- 10. report -----------------------------------------------------------
+    serve_launches = sv["card"]["saturated"]["launches"]
     for entry in report:
         name = entry["name"]
         entry["max_abs_err"] = max_err[name]
+        entry["serve_launches"] = serve_launches[name]
         if name in MAIN_PATH:
             entry["path"], entry["launches"] = "main", launches[name]
             entry["replay_launches"] = rp["launches"][0][name]
@@ -1170,6 +1266,7 @@ def main() -> int:
         "e2e": mb_runs[0]["e2e"]}}))
     print(json.dumps({"replay": rp}))
     print(json.dumps({"disk_replay": dr}))
+    print(json.dumps({"serve": sv}))
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {

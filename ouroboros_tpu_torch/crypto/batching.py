@@ -1,0 +1,792 @@
+"""VerifyService — adaptive micro-batching in front of a CryptoBackend.
+
+The replay path feeds the device big uniform windows, but a CAUGHT-UP
+production node does not (SURVEY.md "hard parts" #6): ChainSync degrades
+to batch-of-1 headers at the tip and the mempool sees a firehose of
+single-tx Ed25519 witness checks (the `mempool.interarrival_secs` /
+`chainsync.arrival_gap_secs` histograms exist to show exactly this).
+Dispatching each of those alone wastes the device — every batch pays the
+same setup/transfer cost — while queueing them naively blows the latency
+budget.  This module is the dynamic-batching tier between the two:
+
+- **futures-based submit**: many concurrent protocol threads
+  ``await service.submit(req)`` / ``await fut.wait()``; the service owns
+  the only dispatch loop.
+- **deadline-aware coalescing**: a batch flushes when the bucket fills
+  (``max_batch`` — a lane count on the backend's own padding ladder, so
+  the service adds no shape of its own) or when the
+  oldest request's deadline minus the *measured* flush latency (EWMA)
+  minus a safety margin arrives — whichever is earlier.  Under the sim
+  harness the flush instants are exact virtual times.
+- **admission control / back-pressure**: the queue is bounded
+  (``max_queue``); ``submit`` blocks the caller on STM retry (the
+  back-pressure signal propagates as latency), ``try_submit`` returns
+  None so bursty callers can shed load instead.
+- **break-even fallback**: below a measured per-primitive batch size the
+  device cannot beat the CPU reference path (fixed dispatch cost
+  dominates); such flushes run on the CPU backend.  The break-even table
+  is calibrated ONCE per (primitive, device-kind) and persisted in the
+  port's cache directory, so every later process starts routed.
+
+The service runs entirely on the runtime clock through the simharness
+facade: identical code executes deterministically under ``sim.run``
+(race-explorable — tests/test_batching.py drives the submit/flush/stop
+protocol through ouro-race) and over real time under ``io_run``.  The
+shutdown discipline mirrors observe/scrape.py: ``stop()`` drains every
+queued request (verdicts are always delivered) and joins the flusher —
+no leaked threads on any exit path.
+
+Metrics (namespace ``service.*``): queue-depth gauge, coalesced
+batch-size + bucket histograms, time-in-queue and request-latency
+histograms, deadline-miss / fallback / device-dispatch / back-pressure
+counters.  ``device_batches`` and ``fallback_requests`` are
+``always=True`` — the serve smoke gates on them (light load ⇒ ZERO
+device dispatches).
+
+Ported from `ouroboros_tpu/crypto/batching.py` (the port imports nothing
+of the JAX package).  Changed from the reference: the break-even table's
+cache directory, revision and file name are the port's own
+(`cache_dir`, `kernel_rev`; files named ``ouro-torch-breakeven-*``), not
+the JAX autotuner's, so a table calibrated by one package is never read
+by the other.  The autotuner itself is not ported: the port has none.
+"""
+from __future__ import annotations
+
+import functools
+import hashlib
+import json
+import os
+import tempfile
+import time
+from dataclasses import dataclass
+from typing import Any, Callable, Optional, Sequence
+
+from .. import simharness as sim
+from ..observe import metrics as _metrics
+from ..simharness.stm import TVar, retry
+from .backend import (
+    CpuRefBackend, CryptoBackend, Ed25519Req, KesReq, VrfReq,
+)
+
+__all__ = [
+    "BackPressure", "BreakEvenTable", "ModeledBackend", "PrecheckedBackend",
+    "ServiceConfig", "ServiceStopped", "VerifyFuture", "VerifyService",
+    "calibrate_break_even", "validate_headers_coalesced",
+]
+
+# -- metrics (handles pre-bound, OBS002) ------------------------------------
+_QUEUE_DEPTH = _metrics.gauge("service.queue_depth", stable=False)
+_BATCH_SIZE = _metrics.histogram("service.batch_size", stable=False)
+_BATCH_BUCKET = _metrics.histogram("service.batch_bucket", stable=False)
+_TIME_IN_QUEUE = _metrics.latency_histogram("service.time_in_queue_secs")
+_REQ_LATENCY = _metrics.latency_histogram("service.request_latency_secs")
+_DEADLINE_MISSES = _metrics.counter("service.deadline_misses", always=True,
+                                    stable=False)
+_DEVICE_BATCHES = _metrics.counter("service.device_batches", always=True,
+                                   stable=False)
+_DEVICE_REQS = _metrics.counter("service.device_requests", always=True,
+                                stable=False)
+_FALLBACK_BATCHES = _metrics.counter("service.fallback_batches",
+                                     always=True, stable=False)
+_FALLBACK_REQS = _metrics.counter("service.fallback_requests",
+                                  always=True, stable=False)
+_BACKPRESSURE = _metrics.counter("service.backpressure_waits",
+                                 always=True, stable=False)
+_REJECTED = _metrics.counter("service.rejected", always=True, stable=False)
+_LANES_PADDED = _metrics.counter("service.lanes_padded", stable=False)
+_DISPATCH_ERRORS = _metrics.counter("service.dispatch_errors", always=True,
+                                    stable=False)
+
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def cache_dir() -> str:
+    """Where the port persists break-even tables: a directory of its own
+    under the temp dir (the JAX package's cache directory is never
+    read)."""
+    d = os.path.join(tempfile.gettempdir(), "ouro-torch-cache")
+    try:
+        os.makedirs(d, exist_ok=True)
+    except OSError:
+        d = tempfile.gettempdir()
+    return d
+
+
+def _slug(s: str) -> str:
+    return "".join(c if c.isalnum() or c in "-._" else "-" for c in s)
+
+
+@functools.lru_cache(maxsize=1)
+def kernel_rev() -> str:
+    """The revision a persisted table was measured at: a digest of the
+    CUDA sources (csrc/) and the native CPU source, so a change to either
+    side of the comparison re-calibrates."""
+    csrc = os.path.join(_PKG, "csrc")
+    paths = [os.path.join(csrc, f) for f in sorted(os.listdir(csrc))
+             if f.endswith((".cu", ".cuh"))]
+    paths.append(os.path.join(_PKG, "crypto", "native", "ouro_crypto.cpp"))
+    h = hashlib.sha256()
+    for path in paths:
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return "torch-" + h.hexdigest()[:12]
+
+
+class BackPressure(Exception):
+    """The bounded admission queue is full (try_submit callers that must
+    not block see this signal as a None return instead)."""
+
+
+class ServiceStopped(Exception):
+    """submit after stop(): the service no longer accepts requests."""
+
+
+# -- break-even calibration -------------------------------------------------
+
+#: primitive name per request type (the break-even table's key space)
+_PRIM_OF = {Ed25519Req: "ed25519", VrfReq: "vrf", KesReq: "kes"}
+_METHOD_OF = {"ed25519": "verify_ed25519_batch",
+              "vrf": "verify_vrf_batch",
+              "kes": "verify_kes_batch"}
+PRIMITIVES = ("ed25519", "vrf", "kes")
+
+
+class BreakEvenTable:
+    """Measured per-primitive device-vs-CPU break-even batch sizes.
+
+    ``n_star(prim)`` is the smallest batch size at which one device
+    dispatch beats ``n`` sequential CPU-reference verifies; flushes
+    below it take the CPU fallback.  Entries carry the raw measurements
+    (``cpu_secs_per_req``, ``device_secs_batch`` at ``bucket``) so the
+    decision is auditable.  Persisted as JSON in `cache_dir()`, keyed by
+    (kernel_rev(), device kind) — a new kernel revision re-calibrates."""
+
+    def __init__(self, entries: Optional[dict] = None,
+                 device_kind: str = "uncalibrated"):
+        # prim -> {"n_star", "cpu_secs_per_req", "device_secs_batch",
+        #          "bucket"}
+        self.entries: dict = dict(entries or {})
+        self.device_kind = device_kind
+
+    def n_star(self, prim: str) -> int:
+        """Break-even batch size for `prim`; 1 when never calibrated
+        (an uncalibrated service routes everything to the device, the
+        pre-service behaviour)."""
+        ent = self.entries.get(prim)
+        return int(ent["n_star"]) if ent else 1
+
+    # -- persistence (the port's cache directory) ----------------------------
+    @staticmethod
+    def path_for(device_kind: str) -> str:
+        return os.path.join(
+            cache_dir(),
+            f"ouro-torch-breakeven-{kernel_rev()}-{_slug(device_kind)}.json")
+
+    def save(self, path: Optional[str] = None) -> str:
+        path = path or self.path_for(self.device_kind)
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump({"kernel_rev": kernel_rev(),
+                       "device_kind": self.device_kind,
+                       "entries": {k: self.entries[k]
+                                   for k in sorted(self.entries)}},
+                      f, indent=1, sort_keys=True)
+            f.write("\n")
+        os.replace(tmp, path)
+        return path
+
+    @classmethod
+    def load(cls, device_kind: str,
+             path: Optional[str] = None) -> Optional["BreakEvenTable"]:
+        """The persisted table for `device_kind`, or None when absent /
+        unreadable / from another kernel revision."""
+        path = path or cls.path_for(device_kind)
+        try:
+            with open(path) as f:
+                data = json.load(f)
+            if data.get("kernel_rev") != kernel_rev():
+                return None
+            return cls(data.get("entries") or {},
+                       data.get("device_kind", device_kind))
+        except Exception:
+            return None
+
+    def snapshot(self) -> dict:
+        """Stable-ordered copy for bench JSON / obsreport."""
+        return {"device_kind": self.device_kind,
+                "entries": {k: self.entries[k]
+                            for k in sorted(self.entries)}}
+
+
+def _min_of_k(fn: Callable[[], Any], k: int = 3) -> float:
+    """Min-of-k wall timing (on a noisy card only the min resists
+    slow-tail outliers)."""
+    best = None
+    for _ in range(k):
+        t0 = time.perf_counter()
+        fn()
+        dt = time.perf_counter() - t0
+        best = dt if best is None or dt < best else best
+    return best
+
+
+def _calibration_reqs(prim: str, n: int) -> list:
+    import hashlib
+
+    from . import ed25519_ref, kes as kes_mod, vrf_ref
+    if prim == "ed25519":
+        sk = hashlib.sha256(b"breakeven-ed").digest()
+        vk = ed25519_ref.public_key(sk)
+        return [Ed25519Req(vk, b"c%d" % i, ed25519_ref.sign(sk, b"c%d" % i))
+                for i in range(n)]
+    if prim == "vrf":
+        vsk = hashlib.sha256(b"breakeven-vrf").digest()
+        vvk = vrf_ref.public_key(vsk)
+        return [VrfReq(vvk, b"c%d" % i, vrf_ref.prove(vsk, b"c%d" % i))
+                for i in range(n)]
+    ksk = kes_mod.KesSignKey(4, hashlib.sha256(b"breakeven-kes").digest())
+    return [KesReq(4, ksk.verification_key, 0, b"c%d" % i,
+                   ksk.sign(b"c%d" % i).to_bytes()) for i in range(n)]
+
+
+def calibrate_break_even(device: CryptoBackend, cpu: CryptoBackend,
+                         device_kind: str, bucket: int = 128,
+                         reps: int = 3, persist: bool = True,
+                         primitives: Sequence[str] = PRIMITIVES
+                         ) -> BreakEvenTable:
+    """Measure the per-primitive break-even batch size and persist it.
+
+    Per primitive: the CPU-reference cost of ONE verify (min-of-k over a
+    single-request batch) and the device cost of a `bucket`-sized batch
+    (min-of-k, warmed first so the kernels' build and the per-key fill
+    never pollute the measurement).  Device batch cost is setup-dominated
+    at these sizes, so ``n_star = ceil(device_secs_batch /
+    cpu_secs_per_req)`` clamped to [1, bucket].  Run this OUTSIDE any
+    timed region — the first device call builds the CUDA kernels.  The
+    KES leg's timed calls find their hash paths warm in the backend's
+    cache, as the reference's do."""
+    entries = {}
+    for prim in primitives:
+        method = _METHOD_OF[prim]
+        one = _calibration_reqs(prim, 1)
+        many = _calibration_reqs(prim, bucket)
+        getattr(cpu, method)(one)                      # warm
+        cpu_secs = _min_of_k(lambda: getattr(cpu, method)(one), reps)
+        getattr(device, method)(many)                  # warm / build
+        dev_secs = _min_of_k(lambda: getattr(device, method)(many), reps)
+        n_star = max(1, min(bucket,
+                            -(-dev_secs // max(cpu_secs, 1e-12))))
+        entries[prim] = {"n_star": int(n_star),
+                         "cpu_secs_per_req": round(cpu_secs, 9),
+                         "device_secs_batch": round(dev_secs, 9),
+                         "bucket": int(bucket)}
+    table = BreakEvenTable(entries, device_kind)
+    if persist:
+        table.save()
+    return table
+
+
+# -- service ----------------------------------------------------------------
+
+_UNSET = object()
+
+
+class VerifyFuture:
+    """One request's pending verdict.  ``await wait()`` blocks on STM
+    until the flusher resolves it — with the verdict bool, or with the
+    dispatch exception (re-raised in the caller).  A caller that times
+    out mid-flush simply stops waiting; the service still resolves the
+    future (results are never lost, late readers see them)."""
+
+    __slots__ = ("_tv",)
+
+    def __init__(self) -> None:
+        self._tv = TVar(_UNSET, label="verify-future")
+
+    @property
+    def done(self) -> bool:
+        return self._tv._value is not _UNSET
+
+    async def wait(self) -> bool:
+        def tx_fn(tx):
+            v = tx.read(self._tv)
+            if v is _UNSET:
+                retry()
+            return v
+        v = await sim.atomically(tx_fn)
+        if isinstance(v, BaseException):
+            raise v
+        return v
+
+    def _resolve_tx(self, tx, v) -> None:
+        """Resolve inside a transaction (the flusher commits a whole
+        batch's verdicts atomically — one HB-clean wakeup)."""
+        tx.write(self._tv, v)
+
+
+@dataclass(frozen=True)
+class _Pending:
+    req: Any
+    fut: VerifyFuture
+    t_enq: float
+    deadline_at: float
+
+
+@dataclass(frozen=True)
+class ServiceConfig:
+    """Knobs of the coalescer (README "Verification service" documents
+    how to read/choose them).
+
+    max_batch       — flush when this many requests are pending.  Set it
+                      to a lane count on the backend's padding ladder
+                      (TorchBackend: powers of two from 128), so a full
+                      flush pads nothing.
+    max_queue       — admission bound; past it submit blocks (back-
+                      pressure) and try_submit returns None.
+    default_deadline— seconds from submit to verdict-due when the caller
+                      passes none.
+    safety_margin   — seconds subtracted from the deadline-driven flush
+                      instant on top of the measured flush latency.
+    latency_alpha   — EWMA weight of the newest flush-latency sample.
+    initial_latency — flush-latency estimate before any measurement.
+    """
+    max_batch: int = 256
+    max_queue: int = 1024
+    default_deadline: float = 0.05
+    safety_margin: float = 0.002
+    latency_alpha: float = 0.25
+    initial_latency: float = 0.0
+
+
+class VerifyService:
+    """Coalesce single verify_{ed25519,vrf,kes} submissions from many
+    concurrent protocol threads into device batches (see module doc).
+
+    Lifecycle mirrors observe/scrape.py: ``await start()`` spawns the
+    flusher on the active runtime; ``await stop()`` stops admission,
+    drains every queued request and joins the flusher."""
+
+    def __init__(self, backend: CryptoBackend,
+                 cpu_ref: Optional[CryptoBackend] = None,
+                 config: Optional[ServiceConfig] = None,
+                 break_even: Optional[BreakEvenTable] = None):
+        self.backend = backend
+        self.cpu_ref = cpu_ref if cpu_ref is not None else CpuRefBackend()
+        self.cfg = config or ServiceConfig()
+        if break_even is None:
+            kind = getattr(backend, "device_kind", None) or backend.name
+            break_even = (BreakEvenTable.load(kind)
+                          or BreakEvenTable(device_kind=kind))
+        self.break_even = break_even
+        # the queue is an immutable tuple in ONE TVar: each admission
+        # copies it (O(depth)), which is deliberate — rollback stays
+        # free, the flusher's deadline scan needs the whole view anyway,
+        # and at the measured saturated regime (bench --serve: 10k
+        # req/s, depth <= max_batch most of the time) the copies are
+        # ~2% of wall.  If a profile ever shows this hot, the TQueue
+        # two-stack representation is the drop-in upgrade.
+        self._pending_tv = TVar((), label="service-pending")
+        self._stop_tv = TVar(False, label="service-stopping")
+        self._task = None
+        # EWMA of measured flush wall time (virtual under sim): the
+        # deadline-driven flush instant backs off by this much
+        self._flush_latency = self.cfg.initial_latency
+        # local tallies mirrored into service.* (readable without the
+        # registry in tests/bench)
+        self.stats = {"submitted": 0, "device_batches": 0,
+                      "device_requests": 0, "fallback_batches": 0,
+                      "fallback_requests": 0, "deadline_misses": 0,
+                      "flushes": 0, "rejected": 0,
+                      "backpressure_waits": 0}
+        # coalesced-batch-size tally {size: flushes} — the per-service
+        # view of the shared service.batch_size histogram (bench --serve
+        # embeds it; obsreport renders it)
+        self.batch_sizes: dict = {}
+
+    # -- lifecycle -----------------------------------------------------------
+    async def start(self) -> "VerifyService":
+        self._task = sim.spawn(self._run(), label="verify-service")
+        return self
+
+    async def stop(self) -> None:
+        """Stop admission, drain queued requests, join the flusher.
+        Every already-admitted future is resolved before this returns —
+        callers blocked in ``wait()`` are never stranded."""
+        await sim.atomically(lambda tx: tx.write(self._stop_tv, True))
+        if self._task is not None:
+            await self._task.wait()
+            self._task = None
+
+    # -- submission ----------------------------------------------------------
+    def _entry(self, req, deadline: Optional[float]) -> _Pending:
+        now = sim.now()
+        return _Pending(req, VerifyFuture(), now,
+                        now + (deadline if deadline is not None
+                               else self.cfg.default_deadline))
+
+    async def submit(self, req, deadline: Optional[float] = None
+                     ) -> VerifyFuture:
+        """Enqueue one request; returns its future.  Blocks (STM retry)
+        while the queue is at capacity — back-pressure reaches the
+        caller as added latency.  Raises ServiceStopped after stop()."""
+        ent = self._entry(req, deadline)
+        first = [True]
+
+        def tx_fn(tx):
+            if tx.read(self._stop_tv):
+                return "stopped"
+            p = tx.read(self._pending_tv)
+            if len(p) >= self.cfg.max_queue:
+                if first[0]:
+                    first[0] = False
+                    return "full"          # count once, then block
+                retry()
+            tx.write(self._pending_tv, p + (ent,))
+            return "ok"
+
+        r = await sim.atomically(tx_fn)
+        if r == "full":
+            self.stats["backpressure_waits"] += 1
+            _BACKPRESSURE.inc()
+            r = await sim.atomically(tx_fn)
+        if r == "stopped":
+            raise ServiceStopped("verify service is stopping")
+        self.stats["submitted"] += 1
+        _QUEUE_DEPTH.set(len(self._pending_tv._value))
+        return ent.fut
+
+    async def try_submit(self, req, deadline: Optional[float] = None
+                         ) -> Optional[VerifyFuture]:
+        """Non-blocking admission: None when the queue is full (the
+        back-pressure signal for callers that would rather shed load —
+        e.g. re-queue the tx for the next mempool pass — than wait)."""
+        ent = self._entry(req, deadline)
+
+        def tx_fn(tx):
+            if tx.read(self._stop_tv):
+                return "stopped"
+            p = tx.read(self._pending_tv)
+            if len(p) >= self.cfg.max_queue:
+                return "full"
+            tx.write(self._pending_tv, p + (ent,))
+            return "ok"
+
+        r = await sim.atomically(tx_fn)
+        if r == "stopped":
+            raise ServiceStopped("verify service is stopping")
+        if r == "full":
+            self.stats["rejected"] += 1
+            _REJECTED.inc()
+            return None
+        self.stats["submitted"] += 1
+        _QUEUE_DEPTH.set(len(self._pending_tv._value))
+        return ent.fut
+
+    async def verify(self, req, deadline: Optional[float] = None) -> bool:
+        """submit + wait, the drop-in for one backend.verify_* call."""
+        fut = await self.submit(req, deadline)
+        return await fut.wait()
+
+    async def verify_many(self, reqs: Sequence,
+                          deadline: Optional[float] = None) -> list:
+        """Submit a request list and await all verdicts, order-
+        preserving (the batched-call analog; the whole list coalesces
+        with every other caller's traffic)."""
+        futs = [await self.submit(r, deadline) for r in reqs]
+        return [await f.wait() for f in futs]
+
+    # -- flusher -------------------------------------------------------------
+    async def _run(self) -> None:
+        try:
+            while True:
+                st = await sim.atomically(self._wait_work_tx)
+                if st == "stop":
+                    return
+                await self._wait_flush_point()
+                batch = await sim.atomically(self._take_tx)
+                if batch:
+                    await self._dispatch(batch)
+        except BaseException as e:
+            # crash guard: per-group backend errors already resolve as
+            # verdicts, so reaching here means the flusher ITSELF broke.
+            # Honor the delivery contract anyway — stop admission and
+            # resolve every still-queued future with the error (waiters
+            # raise instead of hanging forever) — then re-raise so
+            # stop()'s join surfaces the crash loudly.
+            def poison_tx(tx):
+                tx.write(self._stop_tv, True)
+                for ent in tx.read(self._pending_tv):
+                    ent.fut._resolve_tx(tx, e)
+                tx.write(self._pending_tv, ())
+            await sim.atomically(poison_tx)
+            raise
+
+    def _wait_work_tx(self, tx) -> str:
+        p = tx.read(self._pending_tv)
+        if p:
+            return "work"
+        if tx.read(self._stop_tv):
+            return "stop"
+        retry()
+
+    def _take_tx(self, tx) -> tuple:
+        p = tx.read(self._pending_tv)
+        take, rest = p[:self.cfg.max_batch], p[self.cfg.max_batch:]
+        tx.write(self._pending_tv, rest)
+        return take
+
+    async def _wait_flush_point(self) -> None:
+        """Block until the batch must go: bucket full, stop requested,
+        or the earliest deadline minus measured latency minus margin
+        reached.  Re-arms when a newly admitted request moves the
+        earliest deadline forward."""
+        while True:
+            def peek(tx):
+                return (tx.read(self._pending_tv),
+                        tx.read(self._stop_tv))
+            pending, stopping = await sim.atomically(peek)
+            if (not pending or stopping
+                    or len(pending) >= self.cfg.max_batch):
+                return
+            earliest = min(e.deadline_at for e in pending)
+            due = earliest - self._flush_latency - self.cfg.safety_margin
+            now = sim.now()
+            if due <= now:
+                return
+            tv = sim.new_timeout(due - now)
+
+            def wait_tx(tx):
+                if tx.read(self._stop_tv):
+                    return "go"
+                p = tx.read(self._pending_tv)
+                if len(p) >= self.cfg.max_batch:
+                    return "go"
+                if tx.read(tv):
+                    return "go"
+                if p and min(e.deadline_at for e in p) < earliest:
+                    return "rearm"         # an earlier deadline arrived
+                retry()
+
+            if await sim.atomically(wait_tx) == "go":
+                return
+
+    async def _call(self, b: CryptoBackend, method: str, reqs: list):
+        """One backend call; prefers an async variant when the backend
+        provides one (ModeledBackend charges runtime-clock latency
+        there), else the plain synchronous batch API."""
+        fn = getattr(b, method + "_async", None)
+        if fn is not None:
+            return await fn(reqs)
+        return getattr(b, method)(reqs)
+
+    def _bucket_of(self, n: int) -> int:
+        """The padded lane count a device flush of n requests occupies:
+        the backend's own bucket ladder when it has one (TorchBackend pads
+        to power-of-two buckets >= min_bucket internally — the service
+        adds NO shapes of its own), else n."""
+        lo = getattr(self.backend, "min_bucket", None)
+        if not lo:
+            return n
+        b = lo
+        while b < n:
+            b *= 2
+        return b
+
+    async def _dispatch(self, batch: Sequence[_Pending]) -> None:
+        self.stats["flushes"] += 1
+        self.batch_sizes[len(batch)] = \
+            self.batch_sizes.get(len(batch), 0) + 1
+        _BATCH_SIZE.observe(len(batch))
+        _QUEUE_DEPTH.set(len(self._pending_tv._value))
+        groups: dict = {}
+        verdicts: dict = {}
+        for i, ent in enumerate(batch):
+            prim = _PRIM_OF.get(type(ent.req))
+            if prim is None:
+                verdicts[i] = TypeError(
+                    f"unknown proof request type {type(ent.req)}")
+                continue
+            groups.setdefault(prim, []).append((i, ent))
+        t0 = sim.now()
+        for prim in sorted(groups):
+            items = groups[prim]
+            reqs = [e.req for _, e in items]
+            use_device = len(reqs) >= self.break_even.n_star(prim)
+            b = self.backend if use_device else self.cpu_ref
+            try:
+                oks = await self._call(b, _METHOD_OF[prim], reqs)
+                if len(oks) != len(reqs):   # defective backend: treat
+                    raise RuntimeError(     # as a dispatch failure, not
+                        f"{b.name}.{_METHOD_OF[prim]} returned "
+                        f"{len(oks)} verdicts for {len(reqs)} "
+                        f"requests")        # a flusher crash
+            except Exception as e:          # dispatch failed: the error
+                _DISPATCH_ERRORS.inc()      # IS the verdict for callers
+                oks = [e] * len(reqs)
+            if use_device:
+                self.stats["device_batches"] += 1
+                self.stats["device_requests"] += len(reqs)
+                _DEVICE_BATCHES.inc()
+                _DEVICE_REQS.inc(len(reqs))
+                bucket = self._bucket_of(len(reqs))
+                _BATCH_BUCKET.observe(bucket)
+                _LANES_PADDED.inc(bucket - len(reqs))
+            else:
+                self.stats["fallback_batches"] += 1
+                self.stats["fallback_requests"] += len(reqs)
+                _FALLBACK_BATCHES.inc()
+                _FALLBACK_REQS.inc(len(reqs))
+            for (i, _e), ok in zip(items, oks):
+                verdicts[i] = ok
+        secs = sim.now() - t0
+        a = self.cfg.latency_alpha
+        self._flush_latency = ((1 - a) * self._flush_latency + a * secs
+                               if self.stats["flushes"] > 1 else secs)
+        done = sim.now()
+        observing = _metrics.enabled()
+        for i, ent in enumerate(batch):
+            if done > ent.deadline_at:
+                self.stats["deadline_misses"] += 1
+                _DEADLINE_MISSES.inc()
+            if observing:
+                _TIME_IN_QUEUE.observe(t0 - ent.t_enq)
+                _REQ_LATENCY.observe(done - ent.t_enq)
+
+        def resolve_tx(tx):
+            # one atomic commit for the whole batch: every waiter wakes
+            # with a happens-before edge from this transaction, and a
+            # caller that timed out mid-flush still finds its verdict
+            for i, ent in enumerate(batch):
+                v = verdicts[i]
+                ent.fut._resolve_tx(tx, v if isinstance(v, BaseException)
+                                    else bool(v))
+        await sim.atomically(resolve_tx)
+
+
+# -- pre-checked verdict routing (seam wiring) ------------------------------
+
+class PrecheckedBackend(CryptoBackend):
+    """A CryptoBackend answering from a {request: verdict} map first and
+    delegating the misses to `inner` in one grouped call.
+
+    The wiring glue for synchronous validation code: an async caller
+    verifies a unit's proofs through the VerifyService up front, then
+    runs the existing sync path (ledger.apply_tx, validate_header) with
+    this backend so the crypto is not re-done — verdicts stay
+    byte-identical because they CAME from the service's backends."""
+
+    name = "prechecked"
+
+    def __init__(self, inner: CryptoBackend, verdicts: dict):
+        self.inner = inner
+        self.verdicts = verdicts
+
+    def _route(self, reqs, method):
+        out: list = [None] * len(reqs)
+        miss, miss_ix = [], []
+        for i, r in enumerate(reqs):
+            v = self.verdicts.get(r)
+            if v is None:
+                miss.append(r)
+                miss_ix.append(i)
+            else:
+                out[i] = bool(v)
+        if miss:
+            for i, ok in zip(miss_ix, getattr(self.inner, method)(miss)):
+                out[i] = bool(ok)
+        return out
+
+    def verify_ed25519_batch(self, reqs):
+        return self._route(reqs, "verify_ed25519_batch")
+
+    def verify_vrf_batch(self, reqs):
+        return self._route(reqs, "verify_vrf_batch")
+
+    def verify_kes_batch(self, reqs):
+        return self._route(reqs, "verify_kes_batch")
+
+
+async def verdict_map(service: VerifyService, reqs: Sequence,
+                      deadline: Optional[float] = None) -> dict:
+    """{request: verdict} for a request list, verified through the
+    service (dedup'd — a repeated request is submitted once).  Feed the
+    result to PrecheckedBackend for the sync validation path."""
+    uniq = list(dict.fromkeys(reqs))
+    oks = await service.verify_many(uniq, deadline)
+    return dict(zip(uniq, oks))
+
+
+async def validate_headers_coalesced(protocol, headers, header_state,
+                                     ledger_view_for,
+                                     service: VerifyService,
+                                     deadline: Optional[float] = None):
+    """validate_headers_batched, with the window's proof batch routed
+    through the VerifyService instead of a direct backend call — the
+    caught-up ChainSync path, where windows are batch-of-1 and the
+    service coalesces them with every other protocol thread's traffic
+    (node/chain_sync.py flushes through here when a service is wired).
+
+    The sequential pass and verdict merge are the SAME code as the
+    direct path (consensus/batch.py), so the two can never drift."""
+    from ..consensus.batch import _merge_header_verdicts, _seq_header_pass
+    protocol.prefetch_window(headers, service.cpu_ref)
+    states, proofs, owner, seq_error, n_seq = _seq_header_pass(
+        protocol, headers, header_state, ledger_view_for)
+    ok = await service.verify_many(proofs, deadline) if proofs else []
+    return _merge_header_verdicts(headers, states, proofs, owner, ok,
+                                  seq_error, n_seq)
+
+
+# -- modeled backend (serve bench / service tests) --------------------------
+
+class ModeledBackend(CryptoBackend):
+    """`inner`'s verdicts + a latency model charged to the RUNTIME
+    clock: ``verify_*_batch_async`` sleeps ``setup_secs + per_req_secs *
+    n`` before answering — exact virtual seconds under the sim harness,
+    real sleeps under io_run.
+
+    This is how `bench --serve` runs device-shaped serving dynamics in
+    deterministic sim time on a container with no accelerator: the cost
+    PARAMETERS come from measurement (the break-even calibration file
+    when one exists, documented defaults otherwise), the DYNAMICS
+    (coalescing, queueing, deadlines, back-pressure) play out in virtual
+    time, and every verdict still comes from `inner` (CpuRefBackend by
+    default — or a PrecheckedBackend over CpuRef-computed verdicts, so
+    a big trace does not re-run pure-Python EC math per arrival), so
+    parity gates stay byte-exact."""
+
+    def __init__(self, setup_secs: float, per_req_secs: float,
+                 inner: Optional[CryptoBackend] = None,
+                 name: str = "modeled"):
+        self.setup_secs = setup_secs
+        self.per_req_secs = per_req_secs
+        self.inner = inner if inner is not None else CpuRefBackend()
+        self.name = name
+        self.calls = 0
+
+    # sync forms delegate straight through (no latency to charge: the
+    # runtime clock only advances inside a thread that sleeps)
+    def verify_ed25519_batch(self, reqs):
+        return self.inner.verify_ed25519_batch(reqs)
+
+    def verify_vrf_batch(self, reqs):
+        return self.inner.verify_vrf_batch(reqs)
+
+    def verify_kes_batch(self, reqs):
+        return self.inner.verify_kes_batch(reqs)
+
+    async def _charged(self, method, reqs):
+        self.calls += 1
+        await sim.sleep(self.setup_secs + self.per_req_secs * len(reqs))
+        return getattr(self.inner, method)(reqs)
+
+    async def verify_ed25519_batch_async(self, reqs):
+        return await self._charged("verify_ed25519_batch", reqs)
+
+    async def verify_vrf_batch_async(self, reqs):
+        return await self._charged("verify_vrf_batch", reqs)
+
+    async def verify_kes_batch_async(self, reqs):
+        return await self._charged("verify_kes_batch", reqs)

@@ -1,0 +1,687 @@
+// ouro_crypto — native CPU crypto for the caught-up / fallback path.
+//
+// The role libsodium plays for the reference (SURVEY.md: cardano-crypto-class
+// calls C libsodium for Ed25519 / ECVRF / hashing — Shelley/Protocol/
+// Crypto.hs:15-23): a fast scalar implementation for batch-of-1 operation
+// when the node is caught up, and the honest CPU baseline for the replay
+// benchmark.  Bit-exact against crypto/ed25519_ref.py + crypto/vrf_ref.py
+// (RFC 8032 cofactorless verify; ECVRF-ED25519-SHA512-Elligator2 per
+// draft-irtf-cfrg-vrf-03 suite 0x04).
+//
+// Implementation notes: 5x51-bit field limbs with unsigned __int128
+// accumulators; strongly-unified extended-coordinate Edwards addition
+// (complete since d is non-square), MSB double-and-add scalar mult;
+// 512-bit scalars reduced mod L by binary long division.  Written from
+// the RFC/draft specifications.
+//
+// Build: g++ -O2 -shared -fPIC -o libouro_crypto.so ouro_crypto.cpp
+
+#include <cstdint>
+#include <cstring>
+#include <cstddef>
+
+typedef unsigned __int128 u128;
+typedef uint64_t u64;
+typedef uint8_t u8;
+
+// ---------------------------------------------------------------- SHA-512
+namespace sha512 {
+
+static const u64 K[80] = {
+    0x428a2f98d728ae22ULL, 0x7137449123ef65cdULL, 0xb5c0fbcfec4d3b2fULL,
+    0xe9b5dba58189dbbcULL, 0x3956c25bf348b538ULL, 0x59f111f1b605d019ULL,
+    0x923f82a4af194f9bULL, 0xab1c5ed5da6d8118ULL, 0xd807aa98a3030242ULL,
+    0x12835b0145706fbeULL, 0x243185be4ee4b28cULL, 0x550c7dc3d5ffb4e2ULL,
+    0x72be5d74f27b896fULL, 0x80deb1fe3b1696b1ULL, 0x9bdc06a725c71235ULL,
+    0xc19bf174cf692694ULL, 0xe49b69c19ef14ad2ULL, 0xefbe4786384f25e3ULL,
+    0x0fc19dc68b8cd5b5ULL, 0x240ca1cc77ac9c65ULL, 0x2de92c6f592b0275ULL,
+    0x4a7484aa6ea6e483ULL, 0x5cb0a9dcbd41fbd4ULL, 0x76f988da831153b5ULL,
+    0x983e5152ee66dfabULL, 0xa831c66d2db43210ULL, 0xb00327c898fb213fULL,
+    0xbf597fc7beef0ee4ULL, 0xc6e00bf33da88fc2ULL, 0xd5a79147930aa725ULL,
+    0x06ca6351e003826fULL, 0x142929670a0e6e70ULL, 0x27b70a8546d22ffcULL,
+    0x2e1b21385c26c926ULL, 0x4d2c6dfc5ac42aedULL, 0x53380d139d95b3dfULL,
+    0x650a73548baf63deULL, 0x766a0abb3c77b2a8ULL, 0x81c2c92e47edaee6ULL,
+    0x92722c851482353bULL, 0xa2bfe8a14cf10364ULL, 0xa81a664bbc423001ULL,
+    0xc24b8b70d0f89791ULL, 0xc76c51a30654be30ULL, 0xd192e819d6ef5218ULL,
+    0xd69906245565a910ULL, 0xf40e35855771202aULL, 0x106aa07032bbd1b8ULL,
+    0x19a4c116b8d2d0c8ULL, 0x1e376c085141ab53ULL, 0x2748774cdf8eeb99ULL,
+    0x34b0bcb5e19b48a8ULL, 0x391c0cb3c5c95a63ULL, 0x4ed8aa4ae3418acbULL,
+    0x5b9cca4f7763e373ULL, 0x682e6ff3d6b2b8a3ULL, 0x748f82ee5defb2fcULL,
+    0x78a5636f43172f60ULL, 0x84c87814a1f0ab72ULL, 0x8cc702081a6439ecULL,
+    0x90befffa23631e28ULL, 0xa4506cebde82bde9ULL, 0xbef9a3f7b2c67915ULL,
+    0xc67178f2e372532bULL, 0xca273eceea26619cULL, 0xd186b8c721c0c207ULL,
+    0xeada7dd6cde0eb1eULL, 0xf57d4f7fee6ed178ULL, 0x06f067aa72176fbaULL,
+    0x0a637dc5a2c898a6ULL, 0x113f9804bef90daeULL, 0x1b710b35131c471bULL,
+    0x28db77f523047d84ULL, 0x32caab7b40c72493ULL, 0x3c9ebe0a15c9bebcULL,
+    0x431d67c49c100d4cULL, 0x4cc5d4becb3e42b6ULL, 0x597f299cfc657e2aULL,
+    0x5fcb6fab3ad6faecULL, 0x6c44198c4a475817ULL};
+
+struct Ctx {
+    u64 h[8];
+    u8 buf[128];
+    u64 nbytes;
+    size_t off;
+};
+
+static inline u64 rotr(u64 x, int n) { return (x >> n) | (x << (64 - n)); }
+
+static void init(Ctx* c) {
+    static const u64 H0[8] = {
+        0x6a09e667f3bcc908ULL, 0xbb67ae8584caa73bULL, 0x3c6ef372fe94f82bULL,
+        0xa54ff53a5f1d36f1ULL, 0x510e527fade682d1ULL, 0x9b05688c2b3e6c1fULL,
+        0x1f83d9abfb41bd6bULL, 0x5be0cd19137e2179ULL};
+    memcpy(c->h, H0, sizeof H0);
+    c->nbytes = 0;
+    c->off = 0;
+}
+
+static void block(Ctx* c, const u8* p) {
+    u64 w[80];
+    for (int i = 0; i < 16; i++) {
+        w[i] = ((u64)p[8 * i] << 56) | ((u64)p[8 * i + 1] << 48) |
+               ((u64)p[8 * i + 2] << 40) | ((u64)p[8 * i + 3] << 32) |
+               ((u64)p[8 * i + 4] << 24) | ((u64)p[8 * i + 5] << 16) |
+               ((u64)p[8 * i + 6] << 8) | (u64)p[8 * i + 7];
+    }
+    for (int i = 16; i < 80; i++) {
+        u64 s0 = rotr(w[i - 15], 1) ^ rotr(w[i - 15], 8) ^ (w[i - 15] >> 7);
+        u64 s1 = rotr(w[i - 2], 19) ^ rotr(w[i - 2], 61) ^ (w[i - 2] >> 6);
+        w[i] = w[i - 16] + s0 + w[i - 7] + s1;
+    }
+    u64 a = c->h[0], b = c->h[1], cc = c->h[2], d = c->h[3];
+    u64 e = c->h[4], f = c->h[5], g = c->h[6], h = c->h[7];
+    for (int i = 0; i < 80; i++) {
+        u64 S1 = rotr(e, 14) ^ rotr(e, 18) ^ rotr(e, 41);
+        u64 ch = (e & f) ^ (~e & g);
+        u64 t1 = h + S1 + ch + K[i] + w[i];
+        u64 S0 = rotr(a, 28) ^ rotr(a, 34) ^ rotr(a, 39);
+        u64 maj = (a & b) ^ (a & cc) ^ (b & cc);
+        u64 t2 = S0 + maj;
+        h = g; g = f; f = e; e = d + t1;
+        d = cc; cc = b; b = a; a = t1 + t2;
+    }
+    c->h[0] += a; c->h[1] += b; c->h[2] += cc; c->h[3] += d;
+    c->h[4] += e; c->h[5] += f; c->h[6] += g; c->h[7] += h;
+}
+
+static void update(Ctx* c, const u8* p, size_t n) {
+    c->nbytes += n;
+    while (n) {
+        size_t take = 128 - c->off;
+        if (take > n) take = n;
+        memcpy(c->buf + c->off, p, take);
+        c->off += take;
+        p += take;
+        n -= take;
+        if (c->off == 128) {
+            block(c, c->buf);
+            c->off = 0;
+        }
+    }
+}
+
+static void final(Ctx* c, u8 out[64]) {
+    u64 bits = c->nbytes * 8;
+    u8 pad = 0x80;
+    update(c, &pad, 1);
+    u8 zero = 0;
+    while (c->off != 112) update(c, &zero, 1);
+    u8 len[16] = {0};
+    for (int i = 0; i < 8; i++) len[15 - i] = (u8)(bits >> (8 * i));
+    update(c, len, 16);
+    for (int i = 0; i < 8; i++)
+        for (int j = 0; j < 8; j++)
+            out[8 * i + j] = (u8)(c->h[i] >> (56 - 8 * j));
+}
+
+}  // namespace sha512
+
+// ------------------------------------------------------ field mod 2^255-19
+struct fe { u64 v[5]; };
+
+static const u64 MASK51 = (1ULL << 51) - 1;
+
+static void fe_0(fe* o) { memset(o->v, 0, sizeof o->v); }
+static void fe_1(fe* o) { fe_0(o); o->v[0] = 1; }
+static void fe_copy(fe* o, const fe* a) { memcpy(o, a, sizeof(fe)); }
+
+static void fe_add(fe* o, const fe* a, const fe* b) {
+    for (int i = 0; i < 5; i++) o->v[i] = a->v[i] + b->v[i];
+}
+
+static void fe_carry(fe* o) {
+    u64 c;
+    for (int i = 0; i < 4; i++) {
+        c = o->v[i] >> 51; o->v[i] &= MASK51; o->v[i + 1] += c;
+    }
+    c = o->v[4] >> 51; o->v[4] &= MASK51; o->v[0] += c * 19;
+    c = o->v[0] >> 51; o->v[0] &= MASK51; o->v[1] += c;
+}
+
+static void fe_sub(fe* o, const fe* a, const fe* b) {
+    // add 2p before subtracting to stay positive
+    static const u64 TWO_P[5] = {
+        0xfffffffffffdaULL, 0xffffffffffffeULL, 0xffffffffffffeULL,
+        0xffffffffffffeULL, 0xffffffffffffeULL};
+    for (int i = 0; i < 5; i++) o->v[i] = a->v[i] + TWO_P[i] - b->v[i];
+    fe_carry(o);
+}
+
+static void fe_mul(fe* o, const fe* a, const fe* b) {
+    u128 t[5] = {0, 0, 0, 0, 0};
+    for (int i = 0; i < 5; i++) {
+        for (int j = 0; j < 5; j++) {
+            u128 prod = (u128)a->v[i] * b->v[j];
+            int k = i + j;
+            if (k >= 5) { k -= 5; prod *= 19; }
+            t[k] += prod;
+        }
+    }
+    u128 c = 0;
+    u64 r[5];
+    for (int i = 0; i < 5; i++) {
+        t[i] += c;
+        r[i] = (u64)(t[i] & MASK51);
+        c = t[i] >> 51;
+    }
+    r[0] += (u64)(c * 19);
+    u64 c2 = r[0] >> 51; r[0] &= MASK51; r[1] += c2;
+    c2 = r[1] >> 51; r[1] &= MASK51; r[2] += c2;
+    memcpy(o->v, r, sizeof r);
+}
+
+static void fe_sq(fe* o, const fe* a) { fe_mul(o, a, a); }
+
+static void fe_frombytes(fe* o, const u8 s[32]) {
+    u64 w[4];
+    for (int i = 0; i < 4; i++) {
+        w[i] = 0;
+        for (int j = 0; j < 8; j++) w[i] |= (u64)s[8 * i + j] << (8 * j);
+    }
+    o->v[0] = w[0] & MASK51;
+    o->v[1] = ((w[0] >> 51) | (w[1] << 13)) & MASK51;
+    o->v[2] = ((w[1] >> 38) | (w[2] << 26)) & MASK51;
+    o->v[3] = ((w[2] >> 25) | (w[3] << 39)) & MASK51;
+    o->v[4] = (w[3] >> 12) & MASK51;   // drops the sign bit
+}
+
+static void fe_tobytes(u8 s[32], const fe* a) {
+    fe t;
+    fe_copy(&t, a);
+    fe_carry(&t);
+    fe_carry(&t);
+    // final conditional subtract of p
+    u64 q = (t.v[0] + 19) >> 51;
+    q = (t.v[1] + q) >> 51;
+    q = (t.v[2] + q) >> 51;
+    q = (t.v[3] + q) >> 51;
+    q = (t.v[4] + q) >> 51;
+    t.v[0] += 19 * q;
+    u64 c;
+    for (int i = 0; i < 4; i++) {
+        c = t.v[i] >> 51; t.v[i] &= MASK51; t.v[i + 1] += c;
+    }
+    t.v[4] &= MASK51;
+    u64 w[4];
+    w[0] = t.v[0] | (t.v[1] << 51);
+    w[1] = (t.v[1] >> 13) | (t.v[2] << 38);
+    w[2] = (t.v[2] >> 26) | (t.v[3] << 25);
+    w[3] = (t.v[3] >> 39) | (t.v[4] << 12);
+    for (int i = 0; i < 4; i++)
+        for (int j = 0; j < 8; j++) s[8 * i + j] = (u8)(w[i] >> (8 * j));
+}
+
+static int fe_isnegative(const fe* a) {
+    u8 s[32];
+    fe_tobytes(s, a);
+    return s[0] & 1;
+}
+
+static int fe_iszero(const fe* a) {
+    u8 s[32];
+    fe_tobytes(s, a);
+    u8 acc = 0;
+    for (int i = 0; i < 32; i++) acc |= s[i];
+    return acc == 0;
+}
+
+// generic exponentiation by a 255-bit exponent given as bytes (LE)
+static void fe_pow(fe* o, const fe* a, const u8 exp[32]) {
+    fe result, base;
+    fe_1(&result);
+    fe_copy(&base, a);
+    for (int bit = 0; bit < 256; bit++) {
+        if ((exp[bit >> 3] >> (bit & 7)) & 1) fe_mul(&result, &result, &base);
+        fe_sq(&base, &base);
+    }
+    fe_copy(o, &result);
+}
+
+static const u8 P_MINUS_2[32] = {
+    0xeb, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff,
+    0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff,
+    0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0x7f};
+// (p-5)/8 = 2^252 - 3  (little-endian)
+static const u8 P_MINUS5_DIV8[32] = {
+    0xfd, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff,
+    0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff,
+    0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0x0f};
+// (p-1)/2 (for the Legendre symbol)
+static const u8 P_MINUS1_DIV2[32] = {
+    0xf6, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff,
+    0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff,
+    0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0x3f};
+
+static void fe_inv(fe* o, const fe* a) { fe_pow(o, a, P_MINUS_2); }
+
+// sqrt(-1) = 2^((p-1)/4): precomputed bytes (LE)
+static const u8 SQRT_M1_BYTES[32] = {
+    0xb0, 0xa0, 0x0e, 0x4a, 0x27, 0x1b, 0xee, 0xc4, 0x78, 0xe4, 0x2f,
+    0xad, 0x06, 0x18, 0x43, 0x2f, 0xa7, 0xd7, 0xfb, 0x3d, 0x99, 0x00,
+    0x4d, 0x2b, 0x0b, 0xdf, 0xc1, 0x4f, 0x80, 0x24, 0x83, 0x2b};
+
+// x with x^2 = u/v, per edwards.sqrt_ratio; returns 0 if no root
+static int fe_sqrt_ratio(fe* x, const fe* u, const fe* v) {
+    fe v2, v3, v7, uv3, uv7, t;
+    fe_sq(&v2, v);
+    fe_mul(&v3, &v2, v);
+    fe_sq(&t, &v3);
+    fe_mul(&v7, &t, v);              // v^7 = (v^3)^2 * v
+    fe_mul(&uv3, u, &v3);
+    fe_mul(&uv7, u, &v7);
+    fe pw;
+    fe_pow(&pw, &uv7, P_MINUS5_DIV8);
+    fe_mul(x, &uv3, &pw);            // x = u v^3 (u v^7)^((p-5)/8)
+    // check v x^2 == u
+    fe x2, vx2, diff;
+    fe_sq(&x2, x);
+    fe_mul(&vx2, v, &x2);
+    fe_sub(&diff, &vx2, u);
+    if (fe_iszero(&diff)) return 1;
+    fe sm1;
+    fe_frombytes(&sm1, SQRT_M1_BYTES);
+    fe_mul(x, x, &sm1);
+    fe_sq(&x2, x);
+    fe_mul(&vx2, v, &x2);
+    fe_sub(&diff, &vx2, u);
+    return fe_iszero(&diff);
+}
+
+// Legendre symbol: 1 if square (or zero), 0 otherwise
+static int fe_is_square(const fe* a) {
+    if (fe_iszero(a)) return 1;
+    fe r;
+    fe_pow(&r, a, P_MINUS1_DIV2);
+    fe one, diff;
+    fe_1(&one);
+    fe_sub(&diff, &r, &one);
+    return fe_iszero(&diff);
+}
+
+// ------------------------------------------------------------ group (ge)
+// extended homogeneous coordinates (X, Y, Z, T), x=X/Z, y=Y/Z, xy=T/Z
+struct ge { fe X, Y, Z, T; };
+
+// d and 2d as field constants (LE bytes of the canonical values)
+static const u8 D_BYTES[32] = {
+    0xa3, 0x78, 0x59, 0x13, 0xca, 0x4d, 0xeb, 0x75, 0xab, 0xd8, 0x41,
+    0x41, 0x4d, 0x0a, 0x70, 0x00, 0x98, 0xe8, 0x79, 0x77, 0x79, 0x40,
+    0xc7, 0x8c, 0x73, 0xfe, 0x6f, 0x2b, 0xee, 0x6c, 0x03, 0x52};
+static const u8 D2_BYTES[32] = {
+    0x59, 0xf1, 0xb2, 0x26, 0x94, 0x9b, 0xd6, 0xeb, 0x56, 0xb1, 0x83,
+    0x82, 0x9a, 0x14, 0xe0, 0x00, 0x30, 0xd1, 0xf3, 0xee, 0xf2, 0x80,
+    0x8e, 0x19, 0xe7, 0xfc, 0xdf, 0x56, 0xdc, 0xd9, 0x06, 0x24};
+
+static void ge_identity(ge* o) {
+    fe_0(&o->X); fe_1(&o->Y); fe_1(&o->Z); fe_0(&o->T);
+}
+
+// strongly-unified addition (add-2008-hwcd-3); complete because d is
+// non-square — valid for doubling too
+static void ge_add(ge* o, const ge* p, const ge* q) {
+    fe a, b, c, d_, e, f, g, h, t0, t1, d2;
+    fe_frombytes(&d2, D2_BYTES);
+    fe_sub(&t0, &p->Y, &p->X);
+    fe_sub(&t1, &q->Y, &q->X);
+    fe_mul(&a, &t0, &t1);                       // A=(Y1-X1)(Y2-X2)
+    fe_add(&t0, &p->Y, &p->X);
+    fe_add(&t1, &q->Y, &q->X);
+    fe_carry(&t0); fe_carry(&t1);
+    fe_mul(&b, &t0, &t1);                       // B=(Y1+X1)(Y2+X2)
+    fe_mul(&c, &p->T, &q->T);
+    fe_mul(&c, &c, &d2);                        // C=2d T1 T2
+    fe_mul(&d_, &p->Z, &q->Z);
+    fe_add(&d_, &d_, &d_);
+    fe_carry(&d_);                              // D=2 Z1 Z2
+    fe_sub(&e, &b, &a);
+    fe_sub(&f, &d_, &c);
+    fe_add(&g, &d_, &c); fe_carry(&g);
+    fe_add(&h, &b, &a); fe_carry(&h);
+    fe_mul(&o->X, &e, &f);
+    fe_mul(&o->Y, &g, &h);
+    fe_mul(&o->T, &e, &h);
+    fe_mul(&o->Z, &f, &g);
+}
+
+static void ge_neg(ge* o, const ge* p) {
+    fe zero;
+    fe_0(&zero);
+    fe_sub(&o->X, &zero, &p->X);
+    fe_copy(&o->Y, &p->Y);
+    fe_copy(&o->Z, &p->Z);
+    fe_sub(&o->T, &zero, &p->T);
+}
+
+static void ge_scalar_mult(ge* o, const u8 scalar[32], const ge* p) {
+    ge r;
+    ge_identity(&r);
+    for (int bit = 255; bit >= 0; bit--) {
+        ge_add(&r, &r, &r);
+        if ((scalar[bit >> 3] >> (bit & 7)) & 1) ge_add(&r, &r, p);
+    }
+    *o = r;
+}
+
+static void ge_compress(u8 s[32], const ge* p) {
+    fe zi, x, y;
+    fe_inv(&zi, &p->Z);
+    fe_mul(&x, &p->X, &zi);
+    fe_mul(&y, &p->Y, &zi);
+    fe_tobytes(s, &y);
+    s[31] |= (u8)(fe_isnegative(&x) << 7);
+}
+
+static int ge_decompress(ge* o, const u8 s[32]) {
+    // reject y >= p (mirrors edwards.decompress)
+    static const u8 P_BYTES[32] = {
+        0xed, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff,
+        0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff,
+        0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0xff, 0x7f};
+    u8 ymasked[32];
+    memcpy(ymasked, s, 32);
+    ymasked[31] &= 0x7f;
+    for (int i = 31; i >= 0; i--) {
+        if (ymasked[i] < P_BYTES[i]) break;
+        if (ymasked[i] > P_BYTES[i]) return 0;
+        if (i == 0) return 0;        // y == p
+    }
+    int sign = s[31] >> 7;
+    fe y, y2, u, v, d, one, x;
+    fe_frombytes(&y, ymasked);
+    fe_sq(&y2, &y);
+    fe_1(&one);
+    fe_sub(&u, &y2, &one);           // y^2 - 1
+    fe_frombytes(&d, D_BYTES);
+    fe_mul(&v, &d, &y2);
+    fe_add(&v, &v, &one);
+    fe_carry(&v);                    // d y^2 + 1
+    if (!fe_sqrt_ratio(&x, &u, &v)) return 0;
+    if (fe_iszero(&x) && sign) return 0;
+    if (fe_isnegative(&x) != sign) {
+        fe zero;
+        fe_0(&zero);
+        fe_sub(&x, &zero, &x);
+    }
+    fe_copy(&o->X, &x);
+    fe_copy(&o->Y, &y);
+    fe_1(&o->Z);
+    fe_mul(&o->T, &x, &y);
+    return 1;
+}
+
+static int ge_equal(const ge* p, const ge* q) {
+    fe a, b, diff;
+    fe_mul(&a, &p->X, &q->Z);
+    fe_mul(&b, &q->X, &p->Z);
+    fe_sub(&diff, &a, &b);
+    if (!fe_iszero(&diff)) return 0;
+    fe_mul(&a, &p->Y, &q->Z);
+    fe_mul(&b, &q->Y, &p->Z);
+    fe_sub(&diff, &a, &b);
+    return fe_iszero(&diff);
+}
+
+// base point
+static const u8 BASE_Y[32] = {
+    0x58, 0x66, 0x66, 0x66, 0x66, 0x66, 0x66, 0x66, 0x66, 0x66, 0x66,
+    0x66, 0x66, 0x66, 0x66, 0x66, 0x66, 0x66, 0x66, 0x66, 0x66, 0x66,
+    0x66, 0x66, 0x66, 0x66, 0x66, 0x66, 0x66, 0x66, 0x66, 0x66};
+
+static void ge_base(ge* o) { ge_decompress(o, BASE_Y); }
+
+// ----------------------------------------------------------- scalars mod L
+// L = 2^252 + 27742317777372353535851937790883648493
+static const u8 L_BYTES[32] = {
+    0xed, 0xd3, 0xf5, 0x5c, 0x1a, 0x63, 0x12, 0x58, 0xd6, 0x9c, 0xf7,
+    0xa2, 0xde, 0xf9, 0xde, 0x14, 0x00, 0x00, 0x00, 0x00, 0x00, 0x00,
+    0x00, 0x00, 0x00, 0x00, 0x00, 0x00, 0x00, 0x00, 0x00, 0x10};
+
+// out = in (64 bytes LE) mod L, by binary long division (cheap vs curve ops)
+static void sc_reduce64(u8 out[32], const u8 in[64]) {
+    // r accumulates the remainder as 5x64 (fits: < 2L < 2^254)
+    u64 r[5] = {0, 0, 0, 0, 0};
+    u64 l[5] = {0, 0, 0, 0, 0};
+    for (int i = 0; i < 32; i++)
+        l[i >> 3] |= (u64)L_BYTES[i] << (8 * (i & 7));
+    for (int bit = 511; bit >= 0; bit--) {
+        // r <<= 1
+        for (int i = 4; i > 0; i--) r[i] = (r[i] << 1) | (r[i - 1] >> 63);
+        r[0] <<= 1;
+        r[0] |= (in[bit >> 3] >> (bit & 7)) & 1;
+        // if r >= L: r -= L
+        int ge_ = 0;
+        for (int i = 4; i >= 0; i--) {
+            if (r[i] > l[i]) { ge_ = 1; break; }
+            if (r[i] < l[i]) { ge_ = 0; break; }
+            if (i == 0) ge_ = 1;
+        }
+        if (ge_) {
+            u128 borrow = 0;
+            for (int i = 0; i < 5; i++) {
+                u128 d = (u128)r[i] - l[i] - borrow;
+                r[i] = (u64)d;
+                borrow = (d >> 64) & 1;
+            }
+        }
+    }
+    for (int i = 0; i < 32; i++) out[i] = (u8)(r[i >> 3] >> (8 * (i & 7)));
+}
+
+static int sc_less_than_L(const u8 s[32]) {
+    for (int i = 31; i >= 0; i--) {
+        if (s[i] < L_BYTES[i]) return 1;
+        if (s[i] > L_BYTES[i]) return 0;
+    }
+    return 0;   // equal
+}
+
+// ------------------------------------------------- generic scalar mults
+// (host-side forging/proving helpers: db_synth-scale chains need C-speed
+// [k]P; verification stays in the batch entry points below)
+extern "C" int ouro_scalarmult(const u8 pt[32], const u8 sc[32],
+                               u8 out[32]) {
+    ge P_, R;
+    if (!ge_decompress(&P_, pt)) return 0;
+    ge_scalar_mult(&R, sc, &P_);
+    ge_compress(out, &R);
+    return 1;
+}
+
+extern "C" void ouro_scalarmult_base(const u8 sc[32], u8 out[32]) {
+    ge B, R;
+    ge_base(&B);
+    ge_scalar_mult(&R, sc, &B);
+    ge_compress(out, &R);
+}
+
+// ------------------------------------------------------------- Ed25519
+extern "C" int ouro_ed25519_verify(const u8 vk[32], const u8* msg,
+                                   size_t len, const u8 sig[64]) {
+    ge A, R;
+    if (!ge_decompress(&A, vk)) return 0;
+    if (!ge_decompress(&R, sig)) return 0;
+    if (!sc_less_than_L(sig + 32)) return 0;
+    u8 hash[64], k[32];
+    sha512::Ctx c;
+    sha512::init(&c);
+    sha512::update(&c, sig, 32);
+    sha512::update(&c, vk, 32);
+    sha512::update(&c, msg, len);
+    sha512::final(&c, hash);
+    sc_reduce64(k, hash);
+    ge B, sB, kA, rhs;
+    ge_base(&B);
+    ge_scalar_mult(&sB, sig + 32, &B);
+    ge_scalar_mult(&kA, k, &A);
+    ge_add(&rhs, &R, &kA);
+    return ge_equal(&sB, &rhs);
+}
+
+extern "C" void ouro_ed25519_verify_batch(size_t n, const u8* vks,
+                                          const u8* msgs,
+                                          const size_t* lens,
+                                          const u8* sigs, u8* out) {
+    size_t off = 0;
+    for (size_t i = 0; i < n; i++) {
+        out[i] = (u8)ouro_ed25519_verify(vks + 32 * i, msgs + off, lens[i],
+                                         sigs + 64 * i);
+        off += lens[i];
+    }
+}
+
+// ----------------------------------------------------------------- ECVRF
+// Elligator2 hash-to-curve per vrf_ref._hash_to_curve (draft-03 §5.4.1.2)
+static void vrf_hash_to_curve(ge* o, const u8 vk[32], const u8* alpha,
+                              size_t alen) {
+    u8 hash[64];
+    sha512::Ctx c;
+    sha512::init(&c);
+    u8 pre[2] = {0x04, 0x01};
+    sha512::update(&c, pre, 2);
+    sha512::update(&c, vk, 32);
+    sha512::update(&c, alpha, alen);
+    sha512::final(&c, hash);
+    u8 rb[32];
+    memcpy(rb, hash, 32);
+    rb[31] &= 0x7f;
+    fe r, r2, one, t, u, w, A;
+    fe_frombytes(&r, rb);
+    // A = 486662
+    fe_0(&A);
+    A.v[0] = 486662;
+    fe_sq(&r2, &r);
+    fe_add(&t, &r2, &r2);
+    fe_1(&one);
+    fe_add(&t, &t, &one);
+    fe_carry(&t);                    // 1 + 2r^2
+    fe ti, negA, zero;
+    fe_inv(&ti, &t);
+    fe_0(&zero);
+    fe_sub(&negA, &zero, &A);
+    fe_mul(&u, &negA, &ti);          // u = -A/(1+2r^2)
+    fe u2, au, t2;
+    fe_sq(&u2, &u);
+    fe_mul(&au, &A, &u);
+    fe_add(&t2, &u2, &au);
+    fe_add(&t2, &t2, &one);
+    fe_carry(&t2);                   // u^2 + A u + 1
+    fe_mul(&w, &u, &t2);
+    if (!fe_is_square(&w)) {
+        fe_sub(&u, &negA, &u);       // u = -A - u
+    }
+    // Edwards y = (u-1)/(u+1), sign bit 0
+    fe num, den, di, y;
+    fe_sub(&num, &u, &one);
+    fe_add(&den, &u, &one);
+    fe_carry(&den);
+    fe_inv(&di, &den);
+    fe_mul(&y, &num, &di);
+    u8 yb[32];
+    fe_tobytes(yb, &y);
+    ge pt;
+    if (!ge_decompress(&pt, yb)) {
+        ge_base(&pt);                // total fallback (vrf_ref parity)
+    }
+    // clear cofactor: multiply by 8
+    ge_add(&pt, &pt, &pt);
+    ge_add(&pt, &pt, &pt);
+    ge_add(&pt, &pt, &pt);
+    *o = pt;
+}
+
+static void vrf_challenge(u8 c16[16], const ge* H, const ge* Gamma,
+                          const ge* U, const ge* V) {
+    u8 buf[128];
+    ge_compress(buf, H);
+    ge_compress(buf + 32, Gamma);
+    ge_compress(buf + 64, U);
+    ge_compress(buf + 96, V);
+    sha512::Ctx c;
+    sha512::init(&c);
+    u8 pre[2] = {0x04, 0x02};
+    sha512::update(&c, pre, 2);
+    sha512::update(&c, buf, 128);
+    u8 hash[64];
+    sha512::final(&c, hash);
+    memcpy(c16, hash, 16);
+}
+
+extern "C" int ouro_vrf_verify(const u8 vk[32], const u8* alpha,
+                               size_t alen, const u8 pi[80]) {
+    ge Y, Gamma;
+    if (!ge_decompress(&Y, vk)) return 0;
+    if (!ge_decompress(&Gamma, pi)) return 0;
+    u8 s[32];
+    memcpy(s, pi + 48, 32);
+    if (!sc_less_than_L(s)) return 0;
+    u8 c32[32] = {0};
+    memcpy(c32, pi + 32, 16);        // 16-byte challenge, zero-extended
+    ge H;
+    vrf_hash_to_curve(&H, vk, alpha, alen);
+    // U = [s]B - [c]Y ; V = [s]H - [c]Gamma
+    ge B, sB, cY, U, sH, cG, V, tmp;
+    ge_base(&B);
+    ge_scalar_mult(&sB, s, &B);
+    ge_scalar_mult(&cY, c32, &Y);
+    ge_neg(&tmp, &cY);
+    ge_add(&U, &sB, &tmp);
+    ge_scalar_mult(&sH, s, &H);
+    ge_scalar_mult(&cG, c32, &Gamma);
+    ge_neg(&tmp, &cG);
+    ge_add(&V, &sH, &tmp);
+    u8 expect[16];
+    vrf_challenge(expect, &H, &Gamma, &U, &V);
+    return memcmp(expect, pi + 32, 16) == 0;
+}
+
+extern "C" void ouro_vrf_verify_batch(size_t n, const u8* vks,
+                                      const u8* alphas, const size_t* alens,
+                                      const u8* pis, u8* out) {
+    size_t off = 0;
+    for (size_t i = 0; i < n; i++) {
+        out[i] = (u8)ouro_vrf_verify(vks + 32 * i, alphas + off, alens[i],
+                                     pis + 80 * i);
+        off += alens[i];
+    }
+}
+
+extern "C" int ouro_vrf_proof_to_hash(const u8 pi[80], u8 beta[64]) {
+    ge Gamma;
+    if (!ge_decompress(&Gamma, pi)) return 0;
+    u8 s[32];
+    memcpy(s, pi + 48, 32);
+    if (!sc_less_than_L(s)) return 0;
+    ge G8;
+    ge_add(&G8, &Gamma, &Gamma);
+    ge_add(&G8, &G8, &G8);
+    ge_add(&G8, &G8, &G8);
+    u8 gbytes[32];
+    ge_compress(gbytes, &G8);
+    sha512::Ctx c;
+    sha512::init(&c);
+    u8 pre[2] = {0x04, 0x03};
+    sha512::update(&c, pre, 2);
+    sha512::update(&c, gbytes, 32);
+    sha512::final(&c, beta);
+    return 1;
+}

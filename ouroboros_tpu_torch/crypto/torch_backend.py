@@ -105,6 +105,9 @@ class TorchBackend(CryptoBackend):
     supports_window_fold = True
     # largest single gamma8 batch in vrf_betas_batch
     BETA_CHUNK = 2048
+    # the floor of the padding ladder (_bucket), which VerifyService reads
+    # to count a flush's padded lanes
+    min_bucket = MIN_BUCKET
 
     def __init__(self, device=None):
         self.device = device_mod.resolve(device)
@@ -219,17 +222,20 @@ class TorchBackend(CryptoBackend):
         return [bool(o) and bool(p) for o, p in zip(ok[:n], parse_ok[:n])]
 
     def verify_vrf_batch(self, reqs):
+        """The `vrf_verify` kernel, then the challenge checked on the host
+        from its rows (`vrf._finish`, as `vrf.batch_verify_vrf` does): at
+        a service flush's 128-256 lanes the torch-op SHA-512 of
+        `challenge_ok_device` is a fixed cost of some thousand launches
+        that outweighs 128 CPU verifies (PERF.md §6)."""
         if not reqs:
             return []
         n = len(reqs)
         with self._on_stream():
-            dev, (parse_ok, _gok, _sok, pf_arr) = self._prep_vrf(
+            dev, (parse_ok, gamma_ok, s_ok, pf_arr) = self._prep_vrf(
                 reqs, self._pad(n))
-            rows = K.vrf_verify(*dev)
-            ok = V.challenge_ok_device(
-                rows, self._dev(pf_arr[:, :32]), self._dev(pf_arr[:, 32:48]))
-            ok = ok.cpu().numpy()
-        return [bool(o) and bool(p) for o, p in zip(ok[:n], parse_ok[:n])]
+            rows = K.vrf_verify(*dev).cpu().numpy()
+        oks, _betas = V._finish(rows, parse_ok, gamma_ok, s_ok, pf_arr, n)
+        return oks
 
     def vrf_betas_batch(self, proofs):
         n = len(proofs)

@@ -1,0 +1,617 @@
+"""Deterministic async runtime with virtual clock — the io-sim analog.
+
+Reference behaviour being reproduced (the reference's io-sim):
+- io-sim/src/Control/Monad/IOSim.hs:4-40   (runSim / runSimTrace / Trace)
+- io-sim/src/Control/Monad/IOSim/Internal.hs:682,1085 (schedule/reschedule)
+- io-sim/src/Control/Monad/IOSim/Internal.hs:1300 (execAtomically: STM with
+  retry/orElse), :1095-1112 (timer firing), IOSim.hs:108 (deadlock detection)
+- io-sim-classes typeclasses (MonadSTM/MonadAsync/MonadFork/MonadTimer/...)
+
+Idiomatic rebuild, not a translation: user code is plain Python ``async def``
+coroutines; blocking primitives are awaitables that yield effect records to a
+trampoline scheduler.  The runtime is single-threaded and cooperative, so STM
+transactions are atomic by construction; the STM machinery only needs read-set
+tracking to implement ``retry`` wake-ups.  The scheduler is seeded and fully
+deterministic: same seed, same program -> identical schedule and trace.
+
+Simulation semantics matching io-sim:
+- the run ends when the *main* thread terminates (other threads discarded);
+- when no thread is runnable the clock jumps to the next timer;
+- no runnable thread + no timer + main alive  =>  Deadlock.
+
+Ported from `ouroboros_tpu/simharness/core.py` (the port imports nothing of
+the JAX package). Copied whole: the scheduler's seeded `random` and its
+heap order are the reference's, so a seeded program gives the same trace,
+event for event, in both packages (tests/test_torch_simharness.py).
+"""
+from __future__ import annotations
+
+import heapq
+import random
+from collections import deque
+from dataclasses import dataclass
+from typing import Any, Callable, Coroutine, Optional
+
+__all__ = [
+    "run", "run_trace", "spawn", "now", "sleep", "yield_", "atomically",
+    "trace_event", "mask", "Async", "Deadlock", "AsyncCancelled",
+    "SimEvent", "Trace", "current_sim", "timeout", "new_timeout", "Sim",
+]
+
+
+class Deadlock(Exception):
+    """No runnable threads, no pending timers, main not finished.
+
+    io-sim analog: deadlock detection (io-sim/src/Control/Monad/IOSim.hs:108).
+    """
+
+
+class AsyncCancelled(BaseException):
+    """Delivered into a thread by Async.cancel (MonadAsync cancel analog)."""
+
+
+@dataclass(frozen=True)
+class SimEvent:
+    time: float
+    tid: int
+    label: str
+    kind: str          # "fork" | "stop" | "fail" | "delay" | "wake" | "stm" | user label
+    payload: Any = None
+
+    def __repr__(self) -> str:
+        return f"@{self.time:.6f} [{self.tid}:{self.label}] {self.kind} {self.payload!r}"
+
+
+Trace = list  # list[SimEvent]
+
+
+class _Eff:
+    """Awaitable effect record interpreted by the scheduler."""
+    __slots__ = ("kind", "payload")
+
+    def __init__(self, kind: str, payload: Any = None):
+        self.kind = kind
+        self.payload = payload
+
+    def __await__(self):
+        result = yield self
+        return result
+
+
+_RUNNABLE, _BLOCKED, _DONE, _FAILED = "runnable", "blocked", "done", "failed"
+
+
+class _Thread:
+    __slots__ = (
+        "tid", "label", "coro", "state", "resume_value", "resume_exc",
+        "result", "exc", "waiters", "blocked_on", "mask_depth",
+        "pending_cancel", "stm_tx_fn", "block_epoch",
+    )
+
+    def __init__(self, tid: int, label: str, coro: Coroutine):
+        self.tid = tid
+        self.label = label
+        self.coro = coro
+        self.state = _RUNNABLE
+        self.resume_value: Any = None
+        self.resume_exc: Optional[BaseException] = None
+        self.result: Any = None
+        self.exc: Optional[BaseException] = None
+        self.waiters: list[tuple["_Thread", int]] = []
+        self.blocked_on: Any = None
+        self.mask_depth = 0
+        self.pending_cancel = False
+        self.stm_tx_fn: Any = None   # pending STM transaction to re-run on wake
+        # Incremented on every block; wakers capture the epoch at registration
+        # so a stale waker (old timer, old STM registration, old waiter entry)
+        # cannot wake the thread out of a *later* block.
+        self.block_epoch = 0
+
+    @property
+    def masked(self) -> bool:
+        return self.mask_depth > 0
+
+    def block(self, on: Any) -> int:
+        self.state = _BLOCKED
+        self.blocked_on = on
+        self.block_epoch += 1
+        return self.block_epoch
+
+    def __repr__(self):
+        return f"<Thread {self.tid}:{self.label} {self.state} blocked_on={self.blocked_on}>"
+
+
+class Async:
+    """Handle to a forked thread (MonadAsync's Async analog).
+
+    io-sim-classes/src/Control/Monad/Class/MonadAsync.hs:98.
+    """
+
+    __slots__ = ("_thread", "_sim")
+
+    def __init__(self, thread: _Thread, sim: "Sim"):
+        self._thread = thread
+        self._sim = sim
+
+    @property
+    def tid(self) -> int:
+        return self._thread.tid
+
+    @property
+    def label(self) -> str:
+        return self._thread.label
+
+    @property
+    def done(self) -> bool:
+        return self._thread.state in (_DONE, _FAILED)
+
+    async def wait(self) -> Any:
+        """Wait for completion; re-raises the thread's exception if it failed."""
+        return await _Eff("wait", self._thread)
+
+    def cancel(self) -> None:
+        """Deliver AsyncCancelled at the target's next unmasked suspension."""
+        self._sim._cancel(self._thread)
+
+    async def cancel_wait(self) -> None:
+        self.cancel()
+        try:
+            await self.wait()
+        except AsyncCancelled as e:
+            # Only swallow the *target's* death; a fresh AsyncCancelled not
+            # identical to the target's exc is the caller's own cancellation.
+            if not self.done or self._thread.exc is not e:
+                raise
+        except Exception:   # target's own failure is reaped silently
+            pass
+
+    def poll(self) -> Optional[Any]:
+        """Non-blocking: result if done, raises if failed, None if running."""
+        t = self._thread
+        if t.state == _FAILED:
+            raise t.exc
+        if t.state == _DONE:
+            return t.result
+        return None
+
+
+_current_sim: Optional["Sim"] = None
+
+
+def current_sim() -> "Sim":
+    if _current_sim is None:
+        raise RuntimeError("not inside a simulation (use simharness.run)")
+    return _current_sim
+
+
+class Sim:
+    def __init__(self, seed: int = 0, collect_trace: bool = False,
+                 explore_schedules: bool = False,
+                 schedule_mode: Optional[str] = None, race=None):
+        self.time = 0.0
+        self._next_tid = 0
+        self._timer_seq = 0
+        self._run_queue: deque[_Thread] = deque()
+        self._timers: list[tuple[float, int, Callable[[], None]]] = []
+        self._threads: dict[int, _Thread] = {}
+        self._trace: Trace = []
+        self._collect = collect_trace
+        self._rng = random.Random(seed)
+        # schedule perturbation (ouro-race exploration): "fifo" is the
+        # production schedule; "random"/"lifo" insert a preemption choice
+        # at every scheduler step.  explore_schedules is the legacy
+        # spelling of "random".
+        if schedule_mode is None:
+            schedule_mode = "random" if explore_schedules else "fifo"
+        if schedule_mode not in ("fifo", "random", "lifo"):
+            raise ValueError(f"unknown schedule_mode {schedule_mode!r}")
+        self._mode = schedule_mode
+        # happens-before race detector (simharness/race.py), or None.
+        # TVar hooks reach it through runtime.active_detector().
+        self._race = race
+        self._main: Optional[_Thread] = None
+        self._current: Optional[_Thread] = None
+        # tvar id -> [(thread, epoch), ...] blocked on an STM retry
+        self._stm_waiters: dict[int, list[tuple[_Thread, int]]] = {}
+
+    # -- tracing ------------------------------------------------------------
+    def now(self) -> float:
+        return self.time
+
+    def _ev(self, thread: Optional[_Thread], kind: str, payload: Any = None):
+        if self._collect:
+            tid = thread.tid if thread else -1
+            label = thread.label if thread else "sim"
+            self._trace.append(SimEvent(self.time, tid, label, kind, payload))
+
+    # -- thread management --------------------------------------------------
+    def _new_thread(self, coro: Coroutine, label: str) -> _Thread:
+        tid = self._next_tid
+        self._next_tid += 1
+        t = _Thread(tid, label or f"thread-{tid}", coro)
+        self._threads[tid] = t
+        self._run_queue.append(t)
+        self._ev(t, "fork")
+        if self._race is not None:
+            parent = self._current.tid if self._current is not None else None
+            self._race.on_fork(parent, t.tid, t.label)
+        return t
+
+    def spawn(self, coro: Coroutine, label: str = "") -> Async:
+        return Async(self._new_thread(coro, label), self)
+
+    def _wake(self, thread: _Thread, value: Any = None,
+              exc: Optional[BaseException] = None,
+              epoch: Optional[int] = None):
+        if thread.state != _BLOCKED:
+            return
+        if epoch is not None and epoch != thread.block_epoch:
+            return   # stale waker from an earlier block of this thread
+        thread.state = _RUNNABLE
+        thread.blocked_on = None
+        thread.resume_value = value
+        thread.resume_exc = exc
+        if exc is not None:
+            thread.stm_tx_fn = None   # exception overrides pending STM re-run
+        self._run_queue.append(thread)
+        self._ev(thread, "wake")
+
+    def _cancel(self, thread: _Thread):
+        if thread.state in (_DONE, _FAILED):
+            return
+        thread.pending_cancel = True
+        if thread.state == _BLOCKED and not thread.masked:
+            thread.pending_cancel = False
+            self._wake(thread, exc=AsyncCancelled())
+
+    # -- timers -------------------------------------------------------------
+    def _add_timer(self, delay: float, fn: Callable[[], None]) -> int:
+        self._timer_seq += 1
+        if self._race is not None:
+            # the callback runs with the clock its creator has NOW (the
+            # registration point) so HB flows through registerDelay-style
+            # wakeups; see race.py "timer" edge
+            token = self._race.on_timer_create()
+
+            def fn(inner=fn, token=token, race=self._race):
+                race.begin_timer(token)
+                try:
+                    inner()
+                finally:
+                    race.end_timer()
+        heapq.heappush(self._timers, (self.time + max(delay, 0.0),
+                                      self._timer_seq, fn))
+        return self._timer_seq
+
+    # -- STM integration (stm.py calls these) -------------------------------
+    def stm_block(self, thread: _Thread, tvar_ids, epoch: int):
+        for vid in tvar_ids:
+            waiters = self._stm_waiters.setdefault(vid, [])
+            if waiters:
+                # prune stale registrations (earlier blocks of any thread) so
+                # never-written tvars don't accumulate dead entries unboundedly
+                waiters[:] = [(t, ep) for t, ep in waiters
+                              if ep == t.block_epoch and t.state == _BLOCKED]
+            waiters.append((thread, epoch))
+
+    def stm_notify(self, tvar_ids):
+        for vid in tvar_ids:
+            for t, ep in self._stm_waiters.pop(vid, ()):
+                # epoch check drops registrations left under *other* tvars by
+                # an earlier wake of the same thread
+                self._wake(t, epoch=ep)  # stm_tx_fn set -> re-run transaction
+
+    # -- main loop ----------------------------------------------------------
+    def run(self, main: Coroutine, label: str = "main") -> Any:
+        global _current_sim
+        from . import runtime as _runtime
+        prev, _current_sim = _current_sim, self
+        prev_rt = _runtime.current_or_none()
+        _runtime.set_current(self)
+        try:
+            self._main = self._new_thread(main, label)
+            while True:
+                if self._main.state == _DONE:
+                    return self._main.result
+                if self._main.state == _FAILED:
+                    raise self._main.exc
+                if not self._run_queue:
+                    if self._timers:
+                        t, _, fn = heapq.heappop(self._timers)
+                        self.time = max(self.time, t)
+                        fn()
+                        continue
+                    blocked = [t for t in self._threads.values()
+                               if t.state == _BLOCKED]
+                    raise Deadlock(
+                        "deadlock: no runnable threads, no timers; blocked: "
+                        + ", ".join(f"{t.tid}:{t.label} on {t.blocked_on}"
+                                    for t in blocked))
+                if self._mode == "random" and len(self._run_queue) > 1:
+                    # O(n) pick is fine: exploration mode is for tests
+                    i = self._rng.randrange(len(self._run_queue))
+                    self._run_queue.rotate(-i)
+                    thread = self._run_queue.popleft()
+                    self._run_queue.rotate(i)
+                elif self._mode == "lifo" and len(self._run_queue) > 1:
+                    thread = self._run_queue.pop()
+                else:
+                    thread = self._run_queue.popleft()
+                if thread.state != _RUNNABLE:
+                    continue
+                self._step(thread)
+        finally:
+            # Close coroutines of threads outliving the simulation so their
+            # finally/__aexit__ blocks run and GC sees no un-awaited frames.
+            # Runs BEFORE restoring _current_sim (cleanup may use sim APIs);
+            # cleanup exceptions never replace the simulation's result.
+            # The race detector detaches first: teardown accesses happen
+            # outside any schedule with a stale thread ctx — recording
+            # them would misattribute them to the last-stepped thread
+            # and fabricate (or mask) races
+            self._race = None
+            interrupt: Optional[BaseException] = None
+            for t in self._threads.values():
+                if t.state not in (_DONE, _FAILED):
+                    try:
+                        t.coro.close()
+                    except Exception as exc:
+                        self._ev(t, "cleanup-error", repr(exc))
+                    except BaseException as exc:  # KeyboardInterrupt etc.
+                        self._ev(t, "cleanup-error", repr(exc))
+                        interrupt = interrupt or exc
+            _current_sim = prev
+            _runtime.set_current(prev_rt)
+            if interrupt is not None:
+                raise interrupt
+
+    def _step(self, thread: _Thread):
+        self._current = thread
+        if self._race is not None:
+            self._race.set_ctx(thread.tid, thread.label)
+        # a pending cancellation beats a pending STM re-run: the blocked
+        # transaction aborts WITHOUT committing (GHC semantics — an async
+        # exception delivered to a thread blocked in `atomically` rolls the
+        # transaction back), so a message that wakes a recv in the same
+        # instant a timeout fires stays in the queue instead of being
+        # consumed-and-dropped by the cancelled continuation
+        if thread.pending_cancel and not thread.masked \
+                and thread.resume_exc is None:
+            thread.pending_cancel = False
+            thread.stm_tx_fn = None
+            thread.resume_exc = AsyncCancelled()
+        if thread.stm_tx_fn is not None and thread.resume_exc is None:
+            tx_fn, thread.stm_tx_fn = thread.stm_tx_fn, None
+            self._run_stm(thread, tx_fn)
+            return
+        try:
+            if thread.resume_exc is not None:
+                exc, thread.resume_exc = thread.resume_exc, None
+                # an exception resume supersedes any pending transaction:
+                # it must not re-run if the coroutine catches and re-blocks
+                thread.stm_tx_fn = None
+                eff = thread.coro.throw(exc)
+            else:
+                val, thread.resume_value = thread.resume_value, None
+                eff = thread.coro.send(val)
+        except StopIteration as stop:
+            thread.state = _DONE
+            thread.result = stop.value
+            self._ev(thread, "stop")
+            self._finish(thread)
+            return
+        except AsyncCancelled as exc:
+            thread.state = _FAILED
+            thread.exc = exc
+            self._ev(thread, "cancelled")
+            self._finish(thread)
+            return
+        except BaseException as exc:  # noqa: BLE001 — thread death is data
+            thread.state = _FAILED
+            thread.exc = exc
+            self._ev(thread, "fail", repr(exc))
+            self._finish(thread)
+            return
+        self._handle(thread, eff)
+
+    def _finish(self, thread: _Thread):
+        for w, ep in thread.waiters:
+            if self._race is not None and ep == w.block_epoch \
+                    and w.state == _BLOCKED:
+                self._race.on_join(w.tid, w.label, thread.tid, thread.label)
+            if thread.state == _FAILED:
+                self._wake(w, exc=thread.exc, epoch=ep)
+            else:
+                self._wake(w, value=thread.result, epoch=ep)
+        thread.waiters.clear()
+
+    def _handle(self, thread: _Thread, eff: Any):
+        if not isinstance(eff, _Eff):
+            raise RuntimeError(
+                f"thread {thread.label} awaited a non-simharness awaitable: "
+                f"{eff!r} (all blocking ops must go through simharness)")
+        kind = eff.kind
+        if kind == "sleep":
+            ep = thread.block(f"sleep({eff.payload})")
+            self._ev(thread, "delay", eff.payload)
+            self._add_timer(eff.payload,
+                            lambda: self._wake(thread, epoch=ep))
+        elif kind == "yield":
+            thread.state = _RUNNABLE
+            self._run_queue.append(thread)
+        elif kind == "wait":
+            target: _Thread = eff.payload
+            if target.state in (_DONE, _FAILED) and self._race is not None:
+                self._race.on_join(thread.tid, thread.label,
+                                   target.tid, target.label)
+            if target.state == _DONE:
+                thread.resume_value = target.result
+                self._run_queue.append(thread)
+            elif target.state == _FAILED:
+                thread.resume_exc = target.exc
+                self._run_queue.append(thread)
+            else:
+                ep = thread.block(f"wait({target.tid}:{target.label})")
+                target.waiters.append((thread, ep))
+        elif kind == "atomically":
+            self._run_stm(thread, eff.payload)
+        elif kind == "mask":
+            thread.mask_depth = max(0, thread.mask_depth + eff.payload)
+            thread.state = _RUNNABLE
+            self._run_queue.append(thread)
+        else:
+            raise RuntimeError(f"unknown effect {kind!r}")
+
+    # STM: run the transaction function now (atomic by construction).
+    def _run_stm(self, thread: _Thread, tx_fn):
+        from . import stm as _stm
+        tx = _stm.Tx(self)
+        try:
+            result = tx_fn(tx)
+        except _stm.Retry:
+            read_ids = list(tx.read_set)
+            tx.rollback()
+            if not read_ids:
+                thread.resume_exc = RuntimeError(
+                    "STM retry with empty read set would block forever")
+                self._run_queue.append(thread)
+                return
+            ep = thread.block(f"STM retry on {len(read_ids)} tvars")
+            thread.stm_tx_fn = tx_fn
+            self._ev(thread, "stm", "retry")
+            self.stm_block(thread, read_ids, ep)
+        except BaseException as exc:  # noqa: BLE001 — surfaced in the thread
+            tx.rollback()
+            thread.resume_exc = exc
+            self._run_queue.append(thread)
+        else:
+            if self._race is not None and (tx.read_vars or tx._writes):
+                self._race.on_commit(
+                    thread.tid, thread.label, dict(tx.read_vars),
+                    {vid: tvar for vid, (tvar, _v) in tx._writes.items()})
+            written = tx.commit()
+            if written:
+                self.stm_notify(written)
+            self._ev(thread, "stm", "commit")
+            thread.resume_value = result
+            self._run_queue.append(thread)
+
+
+# ---------------------------------------------------------------------------
+# User-facing API (module-level, operating on the current sim)
+# ---------------------------------------------------------------------------
+
+def run(main: Coroutine, seed: int = 0, explore_schedules: bool = False) -> Any:
+    """Run a simulation to completion; returns main's result (runSimOrThrow)."""
+    return Sim(seed=seed, explore_schedules=explore_schedules).run(main)
+
+
+def run_trace(main: Coroutine, seed: int = 0,
+              explore_schedules: bool = False) -> tuple[Any, Trace]:
+    """runSimTrace analog: returns (result, trace of SimEvents)."""
+    sim = Sim(seed=seed, collect_trace=True, explore_schedules=explore_schedules)
+    result = sim.run(main)
+    return result, sim._trace
+
+
+def leaked_threads(trace: Trace) -> set:
+    """Tids forked during the run that never reached a terminal event
+    (stop/cancelled/fail) — the shared thread-leak gate (chaos sweeps,
+    scrape-endpoint shutdown tests, bench --smoke).  One definition of
+    "terminal" so a future event kind cannot silently skew one copy."""
+    forked = {e.tid for e in trace if e.kind == "fork"}
+    ended = {e.tid for e in trace
+             if e.kind in ("stop", "cancelled", "fail")}
+    return forked - ended
+
+
+def spawn(coro: Coroutine, label: str = "") -> Async:
+    return current_sim().spawn(coro, label)
+
+
+def now() -> float:
+    """Virtual monotonic clock (MonadMonotonicTime analog)."""
+    return current_sim().time
+
+
+async def sleep(seconds: float) -> None:
+    """threadDelay analog (io-sim-classes MonadTimer.hs:38)."""
+    await _Eff("sleep", float(seconds))
+
+
+async def yield_() -> None:
+    """Reschedule self to the back of the run queue."""
+    await _Eff("yield")
+
+
+async def atomically(tx_fn) -> Any:
+    """Run an STM transaction; tx_fn receives a Tx handle.
+
+    MonadSTM.atomically analog
+    (io-sim-classes/src/Control/Monad/Class/MonadSTM.hs:162).
+    """
+    return await _Eff("atomically", tx_fn)
+
+
+def trace_event(payload: Any, label: str = "user") -> None:
+    """traceM analog (io-sim/src/Control/Monad/IOSim.hs:16,76)."""
+    sim = current_sim()
+    if sim._collect:
+        sim._trace.append(SimEvent(sim.time, -1, "user", label, payload))
+
+
+class mask:
+    """``async with mask():`` — defer cancellation within the body. Nests.
+
+    MonadMask analog (io-sim-classes MonadThrow.hs:176).
+    """
+
+    async def __aenter__(self):
+        await _Eff("mask", +1)
+        return self
+
+    async def __aexit__(self, *exc):
+        await _Eff("mask", -1)
+        return False
+
+
+async def timeout(seconds: float, coro: Coroutine) -> tuple[bool, Any]:
+    """MonadTimer.timeout analog: (True, result) or (False, None) on expiry."""
+    sim = current_sim()
+    child = sim.spawn(coro, label="timeout-child")
+    fired = {"v": False}
+
+    def on_fire():
+        if not child.done:
+            fired["v"] = True
+            child.cancel()
+
+    sim._add_timer(seconds, on_fire)
+    try:
+        result = await child.wait()
+        return True, result
+    except AsyncCancelled as e:
+        # (False, None) only for the child's own timer-induced death; the
+        # caller's own cancellation (a different exception object) re-raises.
+        if fired["v"] and child._thread.exc is e:
+            return False, None
+        raise
+    finally:
+        if not child.done:
+            child.cancel()   # caller left early: don't leak the child
+
+
+def new_timeout(seconds: float):
+    """registerDelay analog: returns a TVar that flips to True at expiry."""
+    from . import stm as _stm
+    sim = current_sim()
+    tv = _stm.TVar(False, label=f"timeout@{sim.time + seconds:.6f}")
+
+    def fire():
+        if sim._race is not None:   # timer write: HB edge, never a race
+            sim._race.on_raw_write(tv)
+        tv._value = True
+        sim.stm_notify([tv._id])
+
+    sim._add_timer(seconds, fire)
+    return tv

@@ -8,8 +8,8 @@ interpreters, like `IOLike`'s IO/IOSim instances.
 
 Ported from `ouroboros_tpu/simharness/runtime.py` (the port imports
 nothing of the JAX package). Copied whole: the runtime registry that
-`observe/spans.py` reads its clock from. The simulator itself is not
-ported yet.
+`observe/spans.py` reads its clock from and the simulator and the IO
+runtime register with.
 """
 from __future__ import annotations
 

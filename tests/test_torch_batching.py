@@ -1,0 +1,805 @@
+"""The port's VerifyService (`ouroboros_tpu_torch.crypto.batching`) and the
+serve entry point (`ouroboros_tpu_torch.serve`) against the JAX package's.
+
+- The cases of tests/test_batching.py on the port's service: exact
+  virtual flush instants, bucket-full flushes, break-even routing,
+  per-primitive groups, re-armed deadlines, back-pressure, drain on stop,
+  a caller's timeout mid-flush, a defective backend, deadline misses,
+  ouro-race at K = 16, the break-even table's persistence and calibration
+  (in the port's own cache directory: a JAX package table is never read),
+  PrecheckedBackend, the mempool seam, the coalesced header window (on a
+  forged TPraos chain: the port has no BFT protocol), the IO runtime and
+  the `service.*` metrics; over ModeledBackend, PrecheckedBackend and
+  CpuRefBackend.
+- A service over `TorchBackend(device="cpu")` (the kernels' plain
+  versions) on seven requests gives CpuRefBackend's verdicts.
+- `TorchBackend.min_bucket`: `_bucket_of(n)` over TorchBackend equals the
+  ladder over JaxBackend for n in 1..600, and `service.lanes_padded` and
+  `service.batch_bucket` move as they do over JaxBackend (without it the
+  port's service counted every flush as unpadded).
+- `serve.sim_legs(7, scale)` equals `bench.serve_bench(7, scale)` field for
+  field at scale 0.5 and 1.0, and repeats exactly; the card legs run on
+  the CPU at a small size and pass `serve.check_card`.
+
+Tolerance: none.  Virtual times, verdicts, counters and dicts compare
+exactly.
+"""
+import hashlib
+import json
+import os
+import tempfile
+
+import pytest
+
+import bench
+from ouroboros_tpu.crypto import batching as j_batching
+from ouroboros_tpu.crypto.backend import CpuRefBackend as JCpuRefBackend
+from ouroboros_tpu.crypto.jax_backend import JaxBackend
+from ouroboros_tpu.observe import metrics as j_metrics
+from ouroboros_tpu_torch import chainsynth, serve
+from ouroboros_tpu_torch import simharness as sim
+from ouroboros_tpu_torch.chain.block import Point
+from ouroboros_tpu_torch.consensus import Mempool, validate_headers_batched
+from ouroboros_tpu_torch.crypto import ed25519_ref, kes, vrf_ref
+from ouroboros_tpu_torch.crypto.backend import (
+    CpuRefBackend, Ed25519Req, KesReq, VrfReq,
+)
+from ouroboros_tpu_torch.crypto.batching import (
+    BreakEvenTable, ModeledBackend, PrecheckedBackend, ServiceConfig,
+    ServiceStopped, VerifyService, calibrate_break_even,
+    validate_headers_coalesced,
+)
+from ouroboros_tpu_torch.crypto.torch_backend import MIN_BUCKET, TorchBackend
+from ouroboros_tpu_torch.eras.shelley import KES_FIELD
+from ouroboros_tpu_torch.ledgers import MockLedger, TxOut, make_tx
+from ouroboros_tpu_torch.observe import metrics as p_metrics
+
+_leaked = sim.leaked_threads
+
+
+# ---------------------------------------------------------------------------
+# request fixtures (computed once: pure-Python EC math is the slow part)
+# ---------------------------------------------------------------------------
+
+def _make_reqs():
+    sk = hashlib.sha256(b"svc-ed").digest()
+    vk = ed25519_ref.public_key(sk)
+    vsk = hashlib.sha256(b"svc-vrf").digest()
+    vvk = vrf_ref.public_key(vsk)
+    ksk = kes.KesSignKey(4, hashlib.sha256(b"svc-kes").digest())
+    good_kes = ksk.sign(b"km")
+    reqs = [
+        Ed25519Req(vk, b"a", ed25519_ref.sign(sk, b"a")),
+        Ed25519Req(vk, b"b", ed25519_ref.sign(sk, b"b")),
+        Ed25519Req(vk, b"bad", ed25519_ref.sign(sk, b"other")),
+        VrfReq(vvk, b"x", vrf_ref.prove(vsk, b"x")),
+        VrfReq(vvk, b"bad", vrf_ref.prove(vsk, b"x")),
+        KesReq(4, ksk.verification_key, 0, b"km", good_kes.to_bytes()),
+        KesReq(4, ksk.verification_key, 2, b"km", good_kes.to_bytes()),
+    ]
+    want = CpuRefBackend().verify_mixed(reqs)
+    return reqs, want
+
+
+REQS, WANT = _make_reqs()
+VMAP = dict(zip(REQS, (bool(w) for w in WANT)))
+
+
+def _lookup():
+    """Oracle-verdict backend: CpuRef answers without re-running EC math
+    per sim schedule (PrecheckedBackend over the precomputed map)."""
+    return PrecheckedBackend(CpuRefBackend(), dict(VMAP))
+
+
+def _table(n_star=3):
+    return BreakEvenTable(
+        {p: {"n_star": n_star, "cpu_secs_per_req": 1e-3,
+             "device_secs_batch": 2e-3, "bucket": 256}
+         for p in ("ed25519", "vrf", "kes")}, "test-device")
+
+
+def _service(device=None, cpu=None, n_star=3, **cfg_kw):
+    device = device if device is not None else ModeledBackend(
+        2e-3, 2e-5, inner=_lookup(), name="dev")
+    cpu = cpu if cpu is not None else ModeledBackend(
+        0.0, 1e-3, inner=_lookup(), name="cpu")
+    return VerifyService(device, cpu_ref=cpu,
+                         config=ServiceConfig(**cfg_kw),
+                         break_even=_table(n_star)), device, cpu
+
+
+# ---------------------------------------------------------------------------
+# coalescer mechanics, exact virtual time
+# ---------------------------------------------------------------------------
+
+def test_deadline_flush_instant_is_exact_in_sim():
+    """One lonely request flushes at EXACTLY deadline - initial_latency
+    - safety_margin (virtual clock), and completes after the modeled
+    CPU-fallback cost (batch of 1 < n*)."""
+    svc, device, cpu = _service(
+        default_deadline=0.050, safety_margin=0.002,
+        initial_latency=0.004, max_batch=8)
+
+    async def main():
+        await svc.start()
+        t0 = sim.now()
+        ok = await svc.verify(REQS[0])
+        done = sim.now() - t0
+        await svc.stop()
+        return ok, done
+
+    (ok, done), trace = sim.run_trace(main())
+    assert ok is True
+    # flush at 0.050 - 0.004 - 0.002 = 0.044; fallback costs 1ms
+    assert done == pytest.approx(0.045, abs=1e-9)
+    assert not _leaked(trace)
+    assert svc.stats["fallback_batches"] == 1
+    assert svc.stats["device_batches"] == 0
+    assert device.calls == 0
+
+
+def test_bucket_full_flushes_immediately():
+    """max_batch pending requests flush without waiting for the
+    deadline, on the device (>= n*), in ONE batch."""
+    svc, device, cpu = _service(max_batch=4, default_deadline=10.0)
+
+    async def main():
+        await svc.start()
+        t0 = sim.now()
+        futs = [await svc.submit(r) for r in REQS[:4]]
+        oks = [await f.wait() for f in futs]
+        secs = sim.now() - t0
+        await svc.stop()
+        return oks, secs
+
+    (oks, secs), trace = sim.run_trace(main())
+    assert oks == [bool(w) for w in WANT[:4]]
+    # no deadline wait: the 4th submit triggers the flush; cost is the
+    # modeled device batch (3 ed25519 + 1 vrf -> two groups)
+    assert secs < 0.05
+    assert svc.stats["device_batches"] >= 1
+    assert svc.batch_sizes == {4: 1}
+    assert not _leaked(trace)
+
+
+def test_break_even_routes_small_batches_to_cpu_and_big_to_device():
+    svc, device, cpu = _service(n_star=3, max_batch=8,
+                                default_deadline=0.01)
+
+    async def main():
+        await svc.start()
+        # leg 1: two ed25519 (below n*=3) -> CPU fallback
+        oks1 = await svc.verify_many(REQS[:2])
+        dev_calls_after_small = device.calls
+        # leg 2: three ed25519 (>= n*) -> device
+        oks2 = await svc.verify_many([REQS[0], REQS[1], REQS[2]])
+        await svc.stop()
+        return oks1, dev_calls_after_small, oks2
+
+    (oks1, small_dev, oks2), trace = sim.run_trace(main())
+    assert oks1 == [True, True]
+    assert small_dev == 0
+    assert oks2 == [True, True, False]
+    assert device.calls == 1
+    assert svc.stats["fallback_requests"] == 2
+    assert svc.stats["device_requests"] == 3
+    assert not _leaked(trace)
+
+
+def test_mixed_batch_splits_per_primitive_groups():
+    """A coalesced mixed batch dispatches per primitive group and each
+    group's break-even decision is independent."""
+    svc, device, cpu = _service(n_star=2, max_batch=16,
+                                default_deadline=0.005)
+
+    async def main():
+        await svc.start()
+        oks = await svc.verify_many(REQS)   # 3 ed + 2 vrf + 2 kes
+        await svc.stop()
+        return oks
+
+    oks, trace = sim.run_trace(main())
+    assert oks == [bool(w) for w in WANT]
+    # all three groups >= n*=2 -> three device dispatches, one flush
+    assert svc.stats["device_batches"] == 3
+    assert svc.stats["flushes"] == 1
+    assert not _leaked(trace)
+
+
+def test_earlier_deadline_rearms_the_flush_timer():
+    """A second request with a TIGHTER deadline pulls the flush
+    forward: the coalescer re-arms instead of sleeping to the first
+    request's later due time."""
+    svc, device, cpu = _service(
+        max_batch=8, safety_margin=0.0, initial_latency=0.0)
+    times = {}
+
+    async def main():
+        await svc.start()
+
+        async def slow():
+            times["slow0"] = sim.now()
+            await svc.verify(REQS[0], deadline=1.0)
+            times["slow1"] = sim.now()
+
+        t = sim.spawn(slow(), label="slow-caller")
+        await sim.sleep(0.010)
+        await svc.verify(REQS[1], deadline=0.020)   # due at t=0.030
+        times["tight1"] = sim.now()
+        await t.wait()
+        await svc.stop()
+
+    _, trace = sim.run_trace(main())
+    # both coalesced into ONE flush at the TIGHT deadline's due time
+    # (t=0.030) + the 2-request modeled CPU cost (2 x 1ms)
+    assert times["tight1"] == pytest.approx(0.032, abs=1e-9)
+    assert times["slow1"] == times["tight1"]
+    assert svc.stats["flushes"] == 1
+    assert not _leaked(trace)
+
+
+def test_backpressure_try_submit_sheds_and_submit_blocks():
+    svc, device, cpu = _service(max_batch=4, max_queue=2,
+                                default_deadline=0.02)
+
+    async def main():
+        await svc.start()
+        results = {}
+        f1 = await svc.try_submit(REQS[0])
+        f2 = await svc.try_submit(REQS[1])
+        f3 = await svc.try_submit(REQS[2])        # queue full -> None
+        results["shed"] = f3 is None
+        t0 = sim.now()
+        # blocking submit parks until the deadline flush drains the
+        # queue, then lands
+        f4 = await svc.submit(REQS[2])
+        results["blocked_secs"] = sim.now() - t0
+        results["oks"] = [await f.wait() for f in (f1, f2, f4)]
+        await svc.stop()
+        return results
+
+    results, trace = sim.run_trace(main())
+    assert results["shed"] is True
+    assert svc.stats["rejected"] == 1
+    assert results["blocked_secs"] > 0        # genuinely waited
+    assert results["oks"] == [True, True, False]
+    assert not _leaked(trace)
+
+
+def test_stop_drains_in_flight_and_rejects_new():
+    svc, device, cpu = _service(max_batch=64, default_deadline=5.0)
+
+    async def main():
+        await svc.start()
+        futs = [await svc.submit(r) for r in REQS]
+        # stop with everything still queued (deadline far away): the
+        # drain must deliver every verdict
+        await svc.stop()
+        oks = [await f.wait() for f in futs]
+        try:
+            await svc.submit(REQS[0])
+            rejected = False
+        except ServiceStopped:
+            rejected = True
+        return oks, rejected
+
+    (oks, rejected), trace = sim.run_trace(main())
+    assert oks == [bool(w) for w in WANT]
+    assert rejected is True
+    assert not _leaked(trace)
+
+
+def test_caller_timeout_mid_flush_leaves_service_healthy():
+    """A caller that gives up while its batch is on the (modeled)
+    device neither loses the verdict nor wedges the service."""
+    svc, device, cpu = _service(
+        device=ModeledBackend(0.050, 0.0, inner=_lookup(), name="slowdev"),
+        n_star=1, max_batch=2, default_deadline=0.01)
+
+    async def main():
+        await svc.start()
+        fut = await svc.submit(REQS[0])
+        ok, _ = await sim.timeout(0.001, fut.wait())   # gives up early
+        later = await svc.verify(REQS[1])              # service lives on
+        await svc.stop()
+        # the timed-out caller's verdict was still resolved
+        return ok, later, await fut.wait()
+
+    (timed_out_ok, later, resolved), trace = sim.run_trace(main())
+    assert timed_out_ok is False        # the wait itself timed out
+    assert later is True
+    assert resolved is True
+    assert not _leaked(trace)
+
+
+def test_defective_backend_resolves_as_error_not_hang():
+    """A backend returning the WRONG number of verdicts is a dispatch
+    error, not a flusher crash: callers get the exception raised from
+    wait() (never a hang), the service keeps serving, and stop() still
+    joins cleanly — the 'verdicts are always delivered' contract."""
+    class Defective(CpuRefBackend):
+        name = "defective"
+
+        def verify_ed25519_batch(self, reqs):
+            return super().verify_ed25519_batch(reqs)[:-1]   # one short
+
+    svc = VerifyService(Defective(), cpu_ref=Defective(),
+                        config=ServiceConfig(max_batch=2,
+                                             default_deadline=0.005),
+                        break_even=_table(1))
+
+    async def main():
+        await svc.start()
+        f1 = await svc.submit(REQS[0])
+        f2 = await svc.submit(REQS[1])
+        errs = []
+        for f in (f1, f2):
+            try:
+                await f.wait()
+            except RuntimeError as e:
+                errs.append("verdicts" in str(e))
+        # the service is still alive for the next caller
+        f3 = await svc.submit(REQS[3])      # vrf: also defective-free
+        await svc.stop()
+        try:
+            ok3 = await f3.wait()
+        except RuntimeError:
+            ok3 = "err"
+        return errs, ok3
+
+    (errs, ok3), trace = sim.run_trace(main())
+    assert errs == [True, True]
+    assert ok3 is True                     # vrf path untouched
+    assert not _leaked(trace)
+
+
+def test_deadline_miss_is_counted():
+    """A device slower than the deadline budget counts a miss per late
+    request (the alerting signal) but still delivers verdicts."""
+    svc, device, cpu = _service(
+        device=ModeledBackend(0.200, 0.0, inner=_lookup(), name="glacial"),
+        n_star=1, max_batch=4, default_deadline=0.02)
+
+    async def main():
+        await svc.start()
+        oks = await svc.verify_many(REQS[:2])
+        await svc.stop()
+        return oks
+
+    oks, trace = sim.run_trace(main())
+    assert oks == [True, True]
+    assert svc.stats["deadline_misses"] == 2
+    assert not _leaked(trace)
+
+
+# ---------------------------------------------------------------------------
+# ouro-race: the submit/flush/shutdown protocol under K=16 schedules
+# ---------------------------------------------------------------------------
+
+def test_coalescer_protocol_race_free_at_k16():
+    """Concurrent submitters + a mid-flush caller timeout + stop with
+    requests in flight, explored under K=16 seeded schedule
+    perturbations: no unordered access pair, no failure, verdicts
+    byte-identical to CpuRefBackend on EVERY schedule, deterministic
+    report."""
+    def make_program():
+        async def main():
+            svc = VerifyService(
+                ModeledBackend(2e-3, 1e-4, inner=_lookup(), name="dev"),
+                cpu_ref=ModeledBackend(0.0, 1e-3, inner=_lookup(),
+                                       name="cpu"),
+                config=ServiceConfig(max_batch=4, max_queue=4,
+                                     default_deadline=0.02),
+                break_even=_table(3))
+            await svc.start()
+            got = {}
+
+            async def client(i, req):
+                got[i] = await svc.verify(req)
+
+            tasks = [sim.spawn(client(i, r), label=f"client-{i}")
+                     for i, r in enumerate(REQS[:5])]
+            # one impatient caller: times out mid-coalesce/flush
+            fut = await svc.submit(REQS[5])
+            await sim.timeout(0.0005, fut.wait())
+            for t in tasks:
+                await t.wait()
+            # stop with a fresh request still in flight: the drain must
+            # resolve it
+            last = await svc.submit(REQS[6])
+            await svc.stop()
+            got["last"] = await last.wait()
+            got["timed"] = await fut.wait()
+            want = {i: bool(WANT[i]) for i in range(5)}
+            want["last"] = bool(WANT[6])
+            want["timed"] = bool(WANT[5])
+            assert got == want, f"verdict drift: {got} != {want}"
+        return main()
+
+    rep = sim.explore_races(make_program, k=16, seed=5)
+    assert not rep.failures, rep.render()
+    assert not rep.found, rep.render()
+    rep2 = sim.explore_races(make_program, k=16, seed=5)
+    assert rep.render() == rep2.render()   # deterministic report
+    # and the FIFO schedule leaks no sim threads
+    _, trace = sim.run_trace(make_program())
+    assert not _leaked(trace), f"leaked sim threads: {_leaked(trace)}"
+
+
+# ---------------------------------------------------------------------------
+# break-even table: persistence + calibration
+# ---------------------------------------------------------------------------
+
+def test_break_even_table_roundtrip_and_rev_mismatch(tmp_path):
+    t = _table(n_star=5)
+    path = str(tmp_path / "be.json")
+    t.save(path)
+    # path_for-compatible load via explicit path
+    back = BreakEvenTable.load("test-device", path=path)
+    assert back is not None
+    assert back.n_star("ed25519") == 5
+    assert back.snapshot() == t.snapshot()
+    # another kernel revision invalidates the file
+    doc = json.load(open(path))
+    doc["kernel_rev"] = "r0-ancient"
+    open(path, "w").write(json.dumps(doc))
+    assert BreakEvenTable.load("test-device", path=path) is None
+    # absent file -> None; uncalibrated table routes everything device
+    assert BreakEvenTable.load("test-device",
+                               path=str(tmp_path / "nope.json")) is None
+    assert BreakEvenTable().n_star("vrf") == 1
+
+
+def test_calibrate_break_even_measures_and_persists(tmp_path,
+                                                    monkeypatch):
+    """calibrate_break_even with a deliberately slow 'device' (fixed
+    per-call stall) and the pure-Python CPU: n_star lands between 1 and
+    the bucket, the file lands in the port's (redirected) cache dir under
+    its own name, and a fresh load returns the same table."""
+    import time as _time
+
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+
+    class StallBackend(CpuRefBackend):
+        name = "stall"
+
+        def _stall(self):
+            _time.sleep(0.003)
+
+        def verify_ed25519_batch(self, reqs):
+            self._stall()
+            return super().verify_ed25519_batch(reqs)
+
+    table = calibrate_break_even(StallBackend(), CpuRefBackend(),
+                                 "stall-device", bucket=4, reps=1,
+                                 primitives=("ed25519",))
+    ent = table.entries["ed25519"]
+    assert 1 <= ent["n_star"] <= 4
+    assert ent["cpu_secs_per_req"] > 0
+    assert ent["device_secs_batch"] >= 0.003
+    path = BreakEvenTable.path_for("stall-device")
+    assert os.path.exists(path)
+    assert path.startswith(str(tmp_path / "ouro-torch-cache"))
+    assert os.path.basename(path).startswith("ouro-torch-breakeven-")
+    again = BreakEvenTable.load("stall-device")
+    assert again is not None and again.snapshot() == table.snapshot()
+
+
+def test_a_jax_package_table_is_never_read(tmp_path, monkeypatch):
+    """Both packages persist to the same temp dir: the JAX package's
+    table (its autotune cache dir, its file name and kernel revision) is
+    invisible to the port, and the port's to the JAX package."""
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    j_table = j_batching.BreakEvenTable(
+        {"ed25519": {"n_star": 9}}, "shared-kind")
+    j_path = j_table.save()
+    assert BreakEvenTable.path_for("shared-kind") != j_path
+    assert BreakEvenTable.load("shared-kind") is None
+    assert BreakEvenTable.load("shared-kind", path=j_path) is None
+    p_path = BreakEvenTable({"ed25519": {"n_star": 5}}, "shared-kind").save()
+    assert j_batching.BreakEvenTable.load("shared-kind").n_star(
+        "ed25519") == 9
+    assert j_batching.BreakEvenTable.load("shared-kind",
+                                          path=p_path) is None
+
+
+# ---------------------------------------------------------------------------
+# PrecheckedBackend routing
+# ---------------------------------------------------------------------------
+
+def test_prechecked_backend_serves_hits_and_delegates_misses():
+    class CountingRef(CpuRefBackend):
+        def __init__(self):
+            self.calls = []
+
+        def verify_ed25519_batch(self, reqs):
+            self.calls.append(len(reqs))
+            return super().verify_ed25519_batch(reqs)
+
+    inner = CountingRef()
+    known = {REQS[0]: True, REQS[2]: False}
+    b = PrecheckedBackend(inner, known)
+    out = b.verify_ed25519_batch([REQS[0], REQS[1], REQS[2]])
+    assert out == [True, bool(WANT[1]), False]
+    assert inner.calls == [1]          # ONE grouped call for the miss
+
+
+# ---------------------------------------------------------------------------
+# seam wiring: mempool + chain-sync header windows
+# ---------------------------------------------------------------------------
+
+def _mempool_setup():
+    sks = [hashlib.sha256(b"svc-mp-%d" % i).digest() for i in range(3)]
+    vks = [ed25519_ref.public_key(sk) for sk in sks]
+    ledger = MockLedger({vk: 100 for vk in vks})
+    holder = {"state": ledger.initial_state(), "tip": Point.genesis()}
+    return sks, vks, ledger, holder
+
+
+def _genesis_txin(ledger, vks, vk):
+    from ouroboros_tpu_torch.ledgers import TxIn
+    ix = sorted(ledger.genesis.keys()).index(vk)
+    return TxIn(MockLedger.GENESIS_TXID, ix)
+
+
+def test_mempool_async_admission_matches_sync_path():
+    """try_add_txs_async through the service admits/rejects EXACTLY
+    what the plain synchronous path does (witness crypto routed through
+    the coalescer, admission semantics untouched)."""
+    sks, vks, ledger, holder = _mempool_setup()
+    tx_ok = make_tx([_genesis_txin(ledger, vks, vks[0])],
+                    [TxOut(vks[1], 100)], [sks[0]])
+    # witnessed by the WRONG key: witness crypto must reject it
+    tx_bad = make_tx([_genesis_txin(ledger, vks, vks[1])],
+                     [TxOut(vks[2], 100)], [sks[2]])
+    ref = Mempool(ledger, lambda: (holder["state"], holder["tip"]),
+                  backend=CpuRefBackend())
+    want_added, want_rejected = ref.try_add_txs([tx_ok, tx_bad])
+
+    mp = Mempool(ledger, lambda: (holder["state"], holder["tip"]),
+                 backend=CpuRefBackend())
+
+    async def main():
+        svc = VerifyService(
+            ModeledBackend(1e-3, 1e-5, name="dev"),
+            cpu_ref=CpuRefBackend(),
+            config=ServiceConfig(max_batch=8, default_deadline=0.005),
+            break_even=_table(2))
+        await svc.start()
+        mp.verify_service = svc
+        added, rejected = await mp.try_add_txs_async([tx_ok, tx_bad])
+        await svc.stop()
+        return added, rejected, svc.stats["submitted"]
+
+    (added, rejected, submitted), trace = sim.run_trace(main())
+    assert added == want_added == [tx_ok.txid]
+    assert [t.txid for t, _ in rejected] == \
+        [t.txid for t, _ in want_rejected]
+    assert submitted >= 2              # witness proofs went via the svc
+    assert not _leaked(trace)
+    assert mp.get_snapshot().tx_ids == ref.get_snapshot().tx_ids
+
+
+def test_mempool_async_without_service_degrades_to_sync():
+    sks, vks, ledger, holder = _mempool_setup()
+    tx_ok = make_tx([_genesis_txin(ledger, vks, vks[0])],
+                    [TxOut(vks[1], 100)], [sks[0]])
+    mp = Mempool(ledger, lambda: (holder["state"], holder["tip"]),
+                 backend=CpuRefBackend())
+
+    async def main():
+        return await mp.try_add_txs_async([tx_ok])
+
+    (added, rejected), _ = sim.run_trace(main())
+    assert added == [tx_ok.txid] and not rejected
+
+
+@pytest.fixture(scope="module")
+def tpraos_chain():
+    """A small forged Shelley chain: (ext rules, blocks)."""
+    ext, blocks, _state = chainsynth.forge_shelley(6, kes_depth=3)
+    return ext, blocks
+
+
+def test_coalesced_header_window_matches_direct_batched(tpraos_chain):
+    """validate_headers_coalesced == validate_headers_batched on a
+    valid window AND on a window with a flipped KES signature (same valid
+    prefix, same error classification) — the caught-up ChainSync flush
+    path can never drift from the syncing one.  The JAX package's case
+    runs a BFT window; the port's protocol is TPraos."""
+    ext, blocks = tpraos_chain
+    protocol, genesis = ext.protocol, ext.initial_state()
+    headers = [b.header for b in blocks]
+    sig = bytearray(headers[3].get(KES_FIELD))
+    sig[8] ^= 1
+    bad = list(headers)
+    bad[3] = headers[3].with_fields(**{KES_FIELD: bytes(sig)})
+
+    def view(_i, h):
+        return ext.ledger.forecast_view(genesis.ledger, h.slot)
+
+    for window in (headers, bad):
+        direct = validate_headers_batched(
+            protocol, window, genesis.header, view, backend=CpuRefBackend())
+
+        async def main(w=window):
+            svc = VerifyService(
+                ModeledBackend(1e-3, 1e-5, name="dev"),
+                cpu_ref=CpuRefBackend(),
+                config=ServiceConfig(max_batch=16,
+                                     default_deadline=0.005),
+                break_even=_table(2))
+            await svc.start()
+            res = await validate_headers_coalesced(
+                protocol, w, genesis.header, view, svc)
+            await svc.stop()
+            return res
+
+        coalesced, trace = sim.run_trace(main())
+        assert coalesced.n_valid == direct.n_valid
+        assert coalesced.states == direct.states
+        assert (coalesced.error is None) == (direct.error is None)
+        assert type(coalesced.error) is type(direct.error)
+        assert not _leaked(trace)
+    assert direct.n_valid == 3 and "proof" in str(direct.error)
+
+
+def test_service_runs_identically_under_io_runtime():
+    """The SAME service code over the asyncio-backed IO runtime (the
+    production interpreter): real sleeps instead of virtual time, same
+    verdicts, same drain-on-stop discipline."""
+    svc, device, cpu = _service(max_batch=4, default_deadline=0.005)
+
+    async def main():
+        await svc.start()
+        oks = await svc.verify_many(REQS[:4])
+        await svc.stop()
+        return oks
+
+    oks = sim.io_run(main())
+    assert oks == [bool(w) for w in WANT[:4]]
+    assert svc.stats["flushes"] >= 1
+
+
+# ---------------------------------------------------------------------------
+# metrics namespace
+# ---------------------------------------------------------------------------
+
+def test_service_metrics_namespace_populates():
+    from ouroboros_tpu_torch.observe import metrics as om
+    reg = om.REGISTRY
+    dev0 = reg.get("service.device_batches").value
+
+    async def main():
+        svc, _d, _c = _service(max_batch=4, default_deadline=0.005,
+                               n_star=2)
+        await svc.start()
+        await svc.verify_many(REQS[:4])
+        await svc.stop()
+
+    sim.run_trace(main())
+    assert reg.get("service.device_batches").value > dev0
+    assert reg.get("service.batch_size").count > 0
+    assert reg.get("service.time_in_queue_secs").count >= 4
+    assert reg.get("service.request_latency_secs").count >= 4
+
+
+# ---------------------------------------------------------------------------
+# the service over TorchBackend, and its padding ladder
+# ---------------------------------------------------------------------------
+
+def test_service_over_torch_backend_on_the_cpu_matches_cpu_ref():
+    """Seven requests (3 Ed25519, 2 VRF, 2 KES) in one flush on the
+    device path of TorchBackend(device="cpu"): CpuRefBackend's verdicts,
+    three device batches, each padded to the 128-lane bucket."""
+    svc = VerifyService(TorchBackend(device="cpu"), cpu_ref=CpuRefBackend(),
+                        config=ServiceConfig(max_batch=16,
+                                             default_deadline=0.005),
+                        break_even=_table(1))
+    padded0 = p_metrics.registry().get("service.lanes_padded").value
+
+    async def main():
+        await svc.start()
+        oks = await svc.verify_many(REQS)
+        await svc.stop()
+        return oks
+
+    oks, trace = sim.run_trace(main())
+    assert oks == [bool(w) for w in WANT]
+    assert svc.stats["device_batches"] == 3 and svc.stats["flushes"] == 1
+    assert p_metrics.registry().get("service.lanes_padded").value \
+        - padded0 == 3 * MIN_BUCKET - len(REQS)
+    assert not _leaked(trace)
+
+
+def test_bucket_of_follows_the_jax_backends_ladder():
+    """The service reads `min_bucket` for a flush's padded lane count:
+    TorchBackend exposes its ladder's floor as JaxBackend does, so the
+    two services agree for every flush size."""
+    p_svc = VerifyService(TorchBackend(device="cpu"), cpu_ref=CpuRefBackend(),
+                          break_even=_table(1))
+    j_svc = j_batching.VerifyService(JaxBackend(), cpu_ref=JCpuRefBackend(),
+                                     break_even=j_batching.BreakEvenTable())
+    assert TorchBackend.min_bucket == MIN_BUCKET == JaxBackend().min_bucket
+    got = [p_svc._bucket_of(n) for n in range(1, 601)]
+    assert got == [j_svc._bucket_of(n) for n in range(1, 601)]
+    assert got[0] == 128 and got[128] == 256 and got[599] == 1024
+
+
+def test_lanes_padded_moves_as_over_the_jax_backend():
+    """The same flushes through both packages' services, the port's over
+    TorchBackend(device="cpu") and the JAX package's over JaxBackend's
+    ladder (its verify calls answered by the CPU reference, so nothing
+    compiles): equal `service.lanes_padded` and `service.batch_bucket`
+    movements."""
+    class LadderOnly(JaxBackend):
+        def verify_ed25519_batch(self, reqs):
+            return JCpuRefBackend().verify_ed25519_batch(reqs)
+
+    batches = [REQS[:1], REQS[:3], [REQS[0]] * 130]
+
+    def run(pkg_sim, svc, reqs_of, reg):
+        padded = reg.get("service.lanes_padded")
+        buckets = reg.get("service.batch_bucket")
+        p0, b0 = padded.value, list(buckets.counts)
+
+        async def main():
+            await svc.start()
+            for b in batches:
+                await svc.verify_many(reqs_of(b))
+            await svc.stop()
+        pkg_sim.run(main())
+        return (padded.value - p0,
+                [c - c0 for c, c0 in zip(buckets.counts, b0)])
+
+    from ouroboros_tpu import simharness as j_sim
+    from ouroboros_tpu.crypto.backend import Ed25519Req as JEd25519Req
+    got = run(sim, VerifyService(
+        TorchBackend(device="cpu"), cpu_ref=CpuRefBackend(),
+        config=ServiceConfig(max_batch=256, default_deadline=0.005),
+        break_even=_table(1)), lambda b: b, p_metrics.registry())
+    want = run(j_sim, j_batching.VerifyService(
+        LadderOnly(), cpu_ref=JCpuRefBackend(),
+        config=j_batching.ServiceConfig(max_batch=256,
+                                        default_deadline=0.005),
+        break_even=j_batching.BreakEvenTable(
+            {"ed25519": {"n_star": 1}}, "x")),
+        lambda b: [JEd25519Req(r.vk, r.msg, r.sig) for r in b],
+        j_metrics.registry())
+    assert got == want
+    assert got[0] == (128 - 1) + (128 - 3) + (256 - 130)
+
+
+# ---------------------------------------------------------------------------
+# serve.py: the sim legs against bench.py's, the card legs on the CPU
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("scale,requests,makespan", [(0.5, 2034, 0.341512),
+                                                      (1.0, 4044, 0.64114)])
+def test_sim_legs_equal_bench_serve_bench(scale, requests, makespan):
+    got = serve.sim_legs(seed=7, scale=scale)
+    assert got == bench.serve_bench(seed=7, scale=scale)
+    assert got == serve.sim_legs(seed=7, scale=scale)      # deterministic
+    assert got["saturated"]["requests"] == requests
+    assert got["saturated"]["makespan_secs"] == makespan
+    assert got["ok"]
+
+
+def test_serve_card_legs_on_the_cpu(tpraos_chain):
+    """The card legs over TorchBackend(device="cpu") at a small scale
+    (the stream wraps around the six-block chain): every check but the
+    launch counts, which the plain versions do not move."""
+    ext, blocks = tpraos_chain
+    card = serve.card_legs(ext, blocks, TorchBackend(device="cpu"), seed=7,
+                           scale=0.02)
+    assert serve.check_card(card, on_card=False) == []
+    assert card["saturated"]["requests"] > 50
+    assert card["tampered"] >= 1 and card["cpp_verdicts_match_tampering"]
+    assert card["backpressure"]["service"]["backpressure_waits"] > 0
+    assert card["mempool"]["blocks"] == len(blocks)
+    assert card["mempool"]["admitted"] == 2 * len(blocks)
+    assert all(card[leg]["launches"] == {k: 0 for k in card[leg]["launches"]}
+               for leg in ("saturated", "light_load", "backpressure",
+                           "mempool"))
+    json.dumps(card)                          # the line serve.main prints

@@ -32,7 +32,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 64          # every module of every slice imported
+    assert n_modules >= 72          # every module of every slice imported
 
 
 def _require_no_card():
@@ -87,6 +87,15 @@ def test_default_backend_on_the_card_is_a_torch_backend():
     got = backend.default_backend()
     assert isinstance(got, TorchBackend) and got.device.type == "cuda"
     assert backend.default_backend() is got
+
+
+def test_serve_raises_without_a_card():
+    _require_no_card()
+    from ouroboros_tpu_torch import serve
+    with pytest.raises(RuntimeError):
+        serve.run(blocks=1)
+    with pytest.raises(RuntimeError):
+        serve.main(["--blocks", "1", "--scale", "0.01"])
 
 
 def test_standalone_apis_and_probe_raise_without_a_card():
