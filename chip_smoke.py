@@ -92,11 +92,27 @@ the CUDA toolkit.  Phases:
    batch under light load, back-pressure waits with every verdict
    delivered, the mempool's admissions the synchronous path's, no leaked
    task;
-8. the standalone batch-verify path: `perf_probe --old` at 4096 Ed25519
+8. the multi-device path (parallel/) on this one card, two shards on
+   cuda:0, each on a CUDA stream of the mesh's: phase 5's chain replayed
+   three times through `ShardedTorchBackend` (2048 Ed25519 and 1024 VRF
+   lanes a shard of a full window) to the forger's state_hash, each run
+   in turns with a single-device run of the same chain, each sharded
+   run's ed25519_split, vrf_verify, gamma8 and kes_hash launches twice
+   phase 5's; phase 5's tampered chains, each stopping at phase 5's
+   block with its error; phase 4's six windows over two and over three
+   shards (shard widths no power of two), each submit's packed buffer
+   (KES lanes included) byte for byte the one a single launch a kernel
+   gives at the same padding on a backend as cold, each kernel launched
+   once a shard, the folded first bad requests phase 4's;
+   `sharded_batch_verify` on phase 2's 4096 full-verify requests equal to
+   `batch_verify_ed25519`, ed25519_verify launched once a shard; and
+   `multichip.dryrun_multichip` with its scaling report over the two
+   shards;
+9. the standalone batch-verify path: `perf_probe --old` at 4096 Ed25519
    and 2048 VRF lanes (split and full Ed25519 verify, VRF verify, betas;
    each row asserts that every lane verifies), where ed25519_verify and
    the three kernels the probe drives must launch;
-9. the field microbenchmark path: field_chain, field_chain_lp (mul and
+10. the field microbenchmark path: field_chain, field_chain_lp (mul and
    sqr), point_chain and point_chain_x4 each held exactly against its
    plain version on the card for every operation at both of its chain
    lengths, at every lane count the microbenchmark runs (4096, the JAX
@@ -115,7 +131,7 @@ the CUDA toolkit.  Phases:
    host time.  After them one more replay of phase 5's valid chain runs
    under torch.profiler for the card's busy seconds: its some hundred
    thousand traced kernels could reach a later trace, so it comes last;
-10. a `main_path` JSON line, a `microbench_field` JSON line (the
+11. a `main_path` JSON line, a `microbench_field` JSON line (the
    per-operation rows at both lane counts), a `replay` JSON line
    (blocks/s, proofs/s, the producer's host_seq and submit seconds with
    the fill and fold inside it, and the consumer's drain seconds, per
@@ -128,14 +144,21 @@ the CUDA toolkit.  Phases:
    `serve` JSON line (`sim` and `card`: per leg requests, proofs/s,
    makespan, p50/p95/p99 latency, deadline misses, the service's stats
    and batch-size and batch-bucket histograms, launches, leaked tasks;
-   the break-even table; the card), a `kernels` JSON line
+   the break-even table; the card), a `sharded` JSON line (blocks/s and
+   proofs/s of each sharded run beside the single-device run in turns
+   with it and phase 5's of this call, spans,
+   launches, padding_stats, the tampered chains, the windows' lanes and
+   verdicts at two and three shards, MULTICHIP_OBS less its metrics
+   snapshot and MESH_SCALING, the card), a `kernels` JSON line
    (each
    kernel's launches are those of its path: the main path's, the
    probe's for ed25519_verify, the microbenchmark's for the chains, and
    for the four window kernels the replay's first run's as
    `replay_launches` and the first native disk replay's as
    `disk_replay_launches`; every kernel's launches in the serve path's
-   saturated leg as `serve_launches`; its
+   saturated leg as `serve_launches`, and in the first sharded replay
+   (for ed25519_verify, the sharded batch verify) as
+   `sharded_launches`; its
    launch shape as threads_per_lane and block; kes_hash's 65536-lane
    row under `wide`), the card line, and as
    the last line {"ok": true, "device": {...}}.
@@ -216,6 +239,11 @@ CARDANO_CHUNK = 100
 SERVE_LANES = (128, 256)
 SERVE_SEED = 7
 SERVE_SCALE = 1.0
+# the multi-device path on one card: shards on cuda:0, each on a stream of
+# its own; phase 5's replay over SHARDS, phase 4's windows over each of
+# SHARD_COUNTS (three: shard widths that are no power of two)
+SHARDS = 2
+SHARD_COUNTS = (2, 3)
 
 
 def log(*a):
@@ -251,11 +279,31 @@ def chain_int(op: str, x: int, y: int, k: int, ed) -> int:
     return x
 
 
-def replay_phase(card: str) -> dict:
+def _finished_replay(label: str, ext, blocks, backend) -> tuple:
+    """replay.replay_once through `backend`, with every window it
+    submitted required to be finished (read back, its event passed) when
+    it returns: the first-error teardown finishes windows past a failing
+    one too.  Returns (replay_once's dict, the number of windows
+    submitted)."""
+    from ouroboros_tpu_torch import replay
+
+    finished = []
+    finish = backend.finish_window
+    backend.finish_window = lambda st, f=finish: finished.append(st) or f(st)
+    r = replay.replay_once(ext, blocks, backend, WINDOW)
+    if len(finished) != backend.padding_stats()["windows"] or any(
+            st["event"] is not None and not st["event"].query()
+            for st in finished):
+        raise AssertionError(f"replay of {label} left a window unfinished")
+    return r, len(finished)
+
+
+def replay_phase(card: str) -> tuple:
     """Phase 5: forge the chain, replay it on the card (valid three
     times, then each tampered chain), hold a sample of each window's
     requests against the port's CpuRefBackend.  Returns the `replay`
-    line's dict and (ext, chain) for the profiled run at the end."""
+    line's dict, (ext, chain, the forger's state_hash) for the later
+    phases and the profiled run at the end, and the tampered chains."""
     import numpy as np
 
     from ouroboros_tpu_torch import chainsynth, replay
@@ -327,19 +375,8 @@ def replay_phase(card: str) -> dict:
     tampered = {}
     for name, blocks in chains.items():
         at, kind = REPLAY_TAMPERS[name]
-        backend = TorchBackend()
-        finished = []
-        finish = backend.finish_window
-        backend.finish_window = lambda st, f=finish: \
-            finished.append(st) or f(st)
-        r = replay.replay_once(ext, blocks, backend, WINDOW)
-        # the first-error teardown: every window submitted was finished
-        # (read back, its event passed), windows past the failing one too
-        if len(finished) != backend.padding_stats()["windows"] or any(
-                st["event"] is not None and not st["event"].query()
-                for st in finished):
-            raise AssertionError(f"replay of the {name} chain left a "
-                                 f"window unfinished")
+        r, n_sub = _finished_replay(f"the {name} chain", ext, blocks,
+                                    TorchBackend())
         res = r["result"]
         err = res.error
         proof = isinstance(err, LedgerError) and "proof" in str(err)
@@ -351,9 +388,9 @@ def replay_phase(card: str) -> dict:
                                  f"{kind} error; got {err!r}")
         tampered[name] = {"n_valid": res.n_valid, "error": repr(err),
                           "seconds": r["seconds"],
-                          "windows_submitted": len(finished)}
+                          "windows_submitted": n_sub}
         log(f"replay {name}: stopped at block {res.n_valid} ({err!r}); "
-            f"{len(finished)} windows submitted, all finished")
+            f"{n_sub} windows submitted, all finished")
 
     # a sample of every window's requests, and the tampered blocks', on
     # the card against the CPU reference
@@ -402,7 +439,7 @@ def replay_phase(card: str) -> dict:
         "drain_s": [r["spans"]["pipeline.drain"] for r in runs],
         "launches": [r["launches"] for r in runs],
         "tampered": tampered, "sampled_requests": n_sampled,
-        "card": card}, (ext, chain, want_hash)
+        "card": card}, (ext, chain, want_hash), chains
 
 
 class HardStop(BaseException):
@@ -753,6 +790,194 @@ def serve_phase(card: str, ext, chain, inputs: dict, max_err: dict) -> dict:
     return {"sim": sim, "card": out, "seconds": seconds, "card_name": card}
 
 
+def sharded_phase(card: str, ext, chain, want_hash: bytes, chains: dict,
+                  rp: dict, windows, bad_req: dict, main_runs,
+                  ed_f) -> dict:
+    """Phase 8: the multi-device path on one card, its shards on the
+    mesh's streams.  (a) phase 5's chain through `ShardedTorchBackend`
+    over ["cuda:0"] * 2, three runs, each in turns with a single-device
+    run (single first in even runs), and the tampered chains, each
+    stopping as phase 5's did; per sharded run every window kernel
+    launches d times phase 5's first run's count.  (b, c) phase 4's six
+    windows over two and three shards: each submit's unfolded packed
+    buffer byte for byte the one a single launch a kernel gives at the
+    same padding (TorchBackend._launch_lanes on the same host arrays, on
+    a second backend whose KES cache is as cold), KES lanes in some
+    window, each kernel launched once a shard, the folded verdicts phase
+    4's (TorchBackend's, held to the CPU references there).  (d) sharded_batch_verify at phase 2's full-verify
+    requests == kernels.batch_verify_ed25519, ed25519_verify launched
+    once a shard.  (e) multichip.dryrun_multichip and its scaling report
+    over ["cuda:0"] * 2.  Returns the `sharded` line's dict."""
+    import functools
+    import io
+    from contextlib import redirect_stdout
+
+    from ouroboros_tpu_torch import multichip
+    from ouroboros_tpu_torch.crypto import kernels as K
+    from ouroboros_tpu_torch.crypto.backend import VrfReq
+    from ouroboros_tpu_torch.crypto.torch_backend import TorchBackend
+    from ouroboros_tpu_torch.parallel import (ShardedTorchBackend, make_mesh,
+                                              sharded_batch_verify)
+
+    t_phase = time.perf_counter()
+    mesh = make_mesh(devices=["cuda:0"] * SHARDS)
+    # (a) the full-width sharded replay, in turns with a single-device run
+    # of the same chain (single first in even runs), so that the two are
+    # compared within this phase, on this host's state
+    single = rp["launches"][0]
+    runs, singles = [], []
+    for run in range(REPLAY_RUNS):
+        for sharded in ((False, True) if run % 2 == 0 else (True, False)):
+            backend = ShardedTorchBackend(mesh) if sharded else TorchBackend()
+            K.reset_launches()
+            r, _n = _finished_replay("the valid chain", ext, chain,
+                                     backend)
+            r["launches"] = dict(K.LAUNCHES)
+            r["padding"] = backend.padding_stats()
+            res = r["result"]
+            if not res.all_valid or res.n_valid != len(chain) or \
+                    res.final_state.ledger.state_hash() != want_hash:
+                raise AssertionError(
+                    f"replay run {run} (sharded: {sharded}): n_valid "
+                    f"{res.n_valid}, error {res.error!r}, or a state_hash "
+                    f"not the forger's")
+            got = {k: r["launches"][k] for k in MAIN_PATH}
+            want = {k: single[k] * (SHARDS if sharded else 1)
+                    for k in MAIN_PATH}
+            if got != want or 0 in want.values():
+                raise AssertionError(f"replay run {run} (sharded: "
+                                     f"{sharded}): launches {got}, "
+                                     f"expected {want}")
+            (runs if sharded else singles).append(r)
+        sh, sd = runs[-1], singles[-1]
+        log(f"sharded replay run {run} (mesh {SHARDS} x cuda:0): "
+            f"{sh['blocks_per_s']:.1f} blocks/s, {sh['proofs_per_s']:.1f} "
+            f"proofs/s ({sh['seconds']:.3f} s), state_hash == forger's; "
+            f"single-device {'after' if run % 2 else 'before'} it "
+            f"{sd['blocks_per_s']:.1f} blocks/s, phase 5's "
+            f"{rp['blocks_per_s'][run]:.1f}; launches {sh['launches']}; "
+            f"spans sharded " + ", ".join(
+                f"{k} {sum(v):.3f}" for k, v in sh["spans"].items())
+            + "; single " + ", ".join(
+                f"{k} {sum(v):.3f}" for k, v in sd["spans"].items()))
+    tampered = {}
+    for name, blocks in chains.items():
+        r, n_sub = _finished_replay(f"the {name} chain, sharded", ext,
+                                    blocks, ShardedTorchBackend(mesh))
+        res = r["result"]
+        ref = rp["tampered"][name]
+        if res.n_valid != ref["n_valid"] or repr(res.error) != ref["error"] \
+                or res.final_state is not None:
+            raise AssertionError(f"sharded replay of the {name} chain: "
+                                 f"n_valid {res.n_valid}, {res.error!r}; "
+                                 f"phase 5: {ref}")
+        tampered[name] = {"n_valid": res.n_valid, "error": repr(res.error),
+                          "windows_submitted": n_sub}
+        log(f"sharded replay {name}: stopped at block {res.n_valid} as "
+            f"phase 5 did ({res.error!r}); {n_sub} windows, all finished")
+
+    # (b, c) phase 4's windows, sharded and unsharded
+    def delta(before):
+        return {k: v - before[k] for k, v in K.LAUNCHES.items()
+                if v != before[k]}
+
+    window_rows = {}
+    for d in SHARD_COUNTS:
+        # three backends as cold, each given every window in order: the
+        # sharded one, one launch a kernel, and the folded one
+        dmesh = make_mesh(devices=["cuda:0"] * d)
+        sb, one, sf = (ShardedTorchBackend(dmesh) for _ in range(3))
+        one._launch_lanes = functools.partial(TorchBackend._launch_lanes,
+                                              one)
+        rows = []
+        for w, blocks in enumerate(windows):
+            reqs = [r for b in blocks for r in b]
+            nxt = ([r.proof for b in windows[w + 1] for r in b
+                    if isinstance(r, VrfReq)] if w + 1 < len(windows) else [])
+            packed = []
+            for backend, per in ((sb, d), (one, 1)):
+                before = dict(K.LAUNCHES)
+                st = backend.submit_window(reqs, nxt)
+                ok, _betas = backend.finish_window(st)
+                want = {k: per for k, n in zip(MAIN_PATH, (
+                    st["ne"], st["nv"], st["nb"], st["nk"])) if n}
+                if delta(before) != want:
+                    raise AssertionError(f"window {w} over {d} shards: "
+                                         f"launches {delta(before)}, "
+                                         f"expected {want}")
+                packed.append(st["host"].numpy().tobytes())
+            if packed[0] != packed[1]:
+                raise AssertionError(f"window {w} over {d} shards: packed "
+                                     f"buffer != one launch a kernel's")
+            verdict, _b = sf.finish_window(sf.submit_window(reqs, nxt,
+                                                            fold=True))
+            first = main_runs[0]["windows"][w]["first_bad_request"]
+            if verdict.first_bad != first or first != bad_req.get(w) or \
+                    ok.count(False) and ok.index(False) != first:
+                raise AssertionError(f"window {w} over {d} shards: first "
+                                     f"bad {verdict.first_bad}, phase 4 "
+                                     f"{first}, CPU reference "
+                                     f"{bad_req.get(w)}")
+            rows.append({"window": w, "lanes": {k: st[k] for k in
+                                                ("ne", "nv", "nb", "nk")},
+                         "first_bad_request": verdict.first_bad})
+        if not any(r["lanes"]["nk"] for r in rows):
+            raise AssertionError(f"phase 4's windows over {d} shards "
+                                 f"carried no KES lanes")
+        window_rows[str(d)] = {"rows": rows,
+                               "padding": sb.padding_stats()}
+        log(f"phase 4's {len(windows)} windows over {d} x cuda:0: packed "
+            f"buffers (KES lanes too) == one launch a kernel's, each kernel "
+            f"once a shard, "
+            f"first bad requests == phase 4's; lanes "
+            f"{[r['lanes'] for r in rows]}")
+
+    # (d) the sharded full verify at phase 2's requests
+    vks, msgs, sigs = ([getattr(x, f) for x in ed_f]
+                       for f in ("vk", "msg", "sig"))
+    K.reset_launches()
+    got = sharded_batch_verify(vks, msgs, sigs, mesh)
+    bv_launches = dict(K.LAUNCHES)
+    want = K.batch_verify_ed25519(vks, msgs, sigs)
+    if got != want or bv_launches != {**{k: 0 for k in K.KERNELS},
+                                      "ed25519_verify": SHARDS}:
+        raise AssertionError(f"sharded_batch_verify on {len(vks)} lanes != "
+                             f"batch_verify_ed25519, or launches "
+                             f"{bv_launches}")
+    log(f"sharded_batch_verify: {len(vks)} lanes == batch_verify_ed25519 "
+        f"({want.count(False)} rejected), ed25519_verify launched "
+        f"{SHARDS} times")
+
+    # (e) the port's multichip entry points
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        obs, scaling = multichip.dryrun_multichip(
+            SHARDS, devices=["cuda:0"] * SHARDS)
+    log(buf.getvalue().rstrip())
+    seconds = time.perf_counter() - t_phase
+    log(f"sharded phase: {seconds:.3f} s")
+    obs.pop("metrics")          # the full snapshot stays in the log line
+    return {
+        "mesh": [str(d) for d in mesh.devices], "blocks": len(chain),
+        "window": WINDOW, "seconds": seconds,
+        "blocks_per_s": [r["blocks_per_s"] for r in runs],
+        "proofs_per_s": [r["proofs_per_s"] for r in runs],
+        "run_seconds": [r["seconds"] for r in runs],
+        "single_device_blocks_per_s": [r["blocks_per_s"] for r in singles],
+        "single_device_proofs_per_s": [r["proofs_per_s"] for r in singles],
+        "phase5_blocks_per_s": rp["blocks_per_s"],
+        "phase5_proofs_per_s": rp["proofs_per_s"],
+        "spans_s": [{k: sum(v) for k, v in r["spans"].items()}
+                    for r in runs],
+        "single_device_spans_s": [{k: sum(v) for k, v in r["spans"].items()}
+                                  for r in singles],
+        "launches": [r["launches"] for r in runs],
+        "padding": [r["padding"] for r in runs],
+        "tampered": tampered, "windows": window_rows,
+        "batch_verify": {"lanes": len(vks), "launches": bv_launches},
+        "multichip_obs": obs, "mesh_scaling": scaling, "card": card}
+
+
 def replay_profiled(ext, chain) -> dict:
     """One more replay of the valid chain under torch.profiler, apart from
     the timed runs: the card's busy seconds and the kernels that took
@@ -875,12 +1100,15 @@ def main() -> int:
         [x.msg for x in ed_f] + [b""] * pad,
         [x.sig for x in ed_f] + [bytes(64)] * pad)
 
+    ed_host, ed_ok = aux._prep_ed(ed_t, aux._pad(len(ed_t)))
+    vrf_host, (v_ok, v_gok, v_sok, v_pf) = aux._prep_vrf(
+        vrf_t, aux._pad(len(vrf_t)))
+    beta_host, beta_dec = aux._prep_betas(beta_t, aux._pad(len(beta_t)))
+    kes_host = aux._prep_kes_hash(kes_m, kes_e, aux._pad(len(kes_m)))
     with torch.cuda.stream(aux._stream):
-        ed_args, ed_ok = aux._prep_ed(ed_t, aux._pad(len(ed_t)))
-        vrf_args, (v_ok, v_gok, v_sok, v_pf) = aux._prep_vrf(
-            vrf_t, aux._pad(len(vrf_t)))
-        beta_args, beta_dec = aux._prep_betas(beta_t, aux._pad(len(beta_t)))
-        kes_args = aux._prep_kes_hash(kes_m, kes_e, aux._pad(len(kes_m)))
+        ed_args, vrf_args, beta_args, kes_args = (
+            tuple(aux._dev(a) for a in host)
+            for host in (ed_host, vrf_host, beta_host, kes_host))
     torch.cuda.synchronize()
     inputs = {"ed25519_split": ed_args, "vrf_verify": vrf_args,
               "gamma8": beta_args, "kes_hash": kes_args,
@@ -1112,7 +1340,7 @@ def main() -> int:
         f"in each of {RUNS} runs")
 
     # -- 5. the Shelley replay ------------------------------------------------
-    rp, replayed = replay_phase(card)
+    rp, replayed, tampered_chains = replay_phase(card)
 
     # -- 6. the disk replay ---------------------------------------------------
     dr = disk_phase(card, *replayed)
@@ -1120,7 +1348,11 @@ def main() -> int:
     # -- 7. the serve path ----------------------------------------------------
     sv = serve_phase(card, *replayed[:2], inputs, max_err)
 
-    # -- 8. the standalone batch-verify path --------------------------------
+    # -- 8. the multi-device path --------------------------------------------
+    sh = sharded_phase(card, *replayed, tampered_chains, rp, windows,
+                       bad_req, runs, ed_f)
+
+    # -- 9. the standalone batch-verify path --------------------------------
     K.reset_launches()
     t = time.perf_counter()
     probe_rows = perf_probe.main(PROBE_ARGS)
@@ -1132,7 +1364,7 @@ def main() -> int:
         raise AssertionError(f"kernels not launched on the probe's path: "
                              f"{missing}")
 
-    # -- 9. the field microbenchmark path -----------------------------------
+    # -- 10. the field microbenchmark path ----------------------------------
     # every (lanes, op, k) its runs launch, and the first n - 3 lanes of
     # each lane count, exactly against the plain versions; a sample of the
     # JAX shape's lanes against Python integers
@@ -1234,12 +1466,15 @@ def main() -> int:
                              f"{not_dev}")
     rp["profiled"] = replay_profiled(*replayed[:2])
 
-    # -- 10. report -----------------------------------------------------------
+    # -- 11. report -----------------------------------------------------------
     serve_launches = sv["card"]["saturated"]["launches"]
     for entry in report:
         name = entry["name"]
         entry["max_abs_err"] = max_err[name]
         entry["serve_launches"] = serve_launches[name]
+        entry["sharded_launches"] = (sh["batch_verify"]["launches"][name]
+                                     if name == "ed25519_verify"
+                                     else sh["launches"][0][name])
         if name in MAIN_PATH:
             entry["path"], entry["launches"] = "main", launches[name]
             entry["replay_launches"] = rp["launches"][0][name]
@@ -1267,6 +1502,7 @@ def main() -> int:
     print(json.dumps({"replay": rp}))
     print(json.dumps({"disk_replay": dr}))
     print(json.dumps({"serve": sv}))
+    print(json.dumps({"sharded": sh}))
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {

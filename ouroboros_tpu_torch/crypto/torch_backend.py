@@ -27,6 +27,11 @@ every key again, so each replay on a fresh backend launches the same
 kernels and runs on the card compare.  Verdicts do not depend on the
 choice, only which windows are KES-cold.
 
+Every kernel launch goes through `_launch_lanes` (host arrays, lane axis
+last, staged and launched once); the sharded backend
+(parallel/sharded_verify.py) overrides it to split the lanes over its
+shards, and inherits the rest.
+
 Spans (observe/spans.py, recorded only when enabled): `window.submit`
 around a submit's host work, with `precompute.fill` and `window.fold`
 inside it, and `window.drain` around finish_window's wait and parse.
@@ -70,6 +75,16 @@ def _pad_words(w: np.ndarray, m: int) -> np.ndarray:
         return w
     pad = [(0, 0)] * (w.ndim - 1) + [(0, m - n)]
     return np.pad(w, pad)
+
+
+def stage(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host array -> tensor on `device`.  On CUDA the array is copied into
+    pinned memory and then to the card without blocking, on the current
+    stream, so staging does not wait for the kernels queued before it."""
+    t = torch.from_numpy(np.require(a, requirements=["C", "W"]))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
 
 
 def fold_window(packed, ne: int, nv: int, nb: int, nk: int,
@@ -132,10 +147,15 @@ class TorchBackend(CryptoBackend):
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         """Host array -> device tensor (pinned staging on CUDA, so the copy
         is queued on the stream instead of waiting for it)."""
-        t = torch.from_numpy(np.require(a, requirements=["C", "W"]))
-        if self._cuda:
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
+        return stage(a, self.device)
+
+    def _launch_lanes(self, kernel: str, arrays) -> torch.Tensor:
+        """Launch `kernel` (a wrapper of kernels.py) once on host arrays
+        whose last axis is the lane axis, staged onto the device on the
+        current stream; returns its device output (lanes on axis 0).  The
+        sharded backend (parallel/sharded_verify.py) splits the lanes over
+        its shards here."""
+        return getattr(K, kernel)(*(self._dev(a) for a in arrays))
 
     def _on_stream(self):
         return (torch.cuda.stream(self._stream) if self._cuda
@@ -162,7 +182,8 @@ class TorchBackend(CryptoBackend):
             "lanes_padded": padded,
             "waste_frac": round(1.0 - used / padded, 4) if padded else 0.0,
             "shards": self.n_shards,
-            "lanes_per_shard_per_window": padded // max(windows, 1),
+            "lanes_per_shard_per_window":
+                padded // (self.n_shards * max(windows, 1)),
         }
 
     def prewarm_window(self, reqs, next_beta_proofs=(), fold: bool = False):
@@ -174,9 +195,9 @@ class TorchBackend(CryptoBackend):
 
     # -- host prep -------------------------------------------------------------
     def _prep_ed(self, reqs, m: int):
-        """Packed-words prep + per-key entries for an Ed25519 batch padded
-        to m; keys the cache could not decompress are masked out of
-        parse_ok."""
+        """Packed-words host arrays (`ed25519_split`'s arguments) + per-key
+        entries for an Ed25519 batch padded to m; keys the cache could not
+        decompress are masked out of parse_ok."""
         pad = m - len(reqs)
         vks = [r.vk for r in reqs] + [b"\x00" * 32] * pad
         arrays, parse_ok = E.prepare_words_batch(
@@ -184,9 +205,7 @@ class TorchBackend(CryptoBackend):
             [r.sig for r in reqs] + [b"\x00" * 64] * pad)
         Aw, _signA, Rw, signR, sw, kw = arrays
         xa, xw, yw, known = self.cache.assemble(vks)
-        args = tuple(self._dev(a) for a in (Aw, xa, xw, yw, Rw, signR, sw,
-                                            kw))
-        return args, parse_ok & known
+        return (Aw, xa, xw, yw, Rw, signR, sw, kw), parse_ok & known
 
     def _prep_vrf(self, reqs, m: int):
         pad = m - len(reqs)
@@ -196,20 +215,20 @@ class TorchBackend(CryptoBackend):
             [r.proof for r in reqs] + [b"\x00" * 80] * pad)
         Yw, _signY, Gw, signG, rw, cw, sw = args
         xa, _x128, _y128, known = self.cache.assemble(vks)
-        dev = tuple(self._dev(a) for a in (Yw, xa, Gw, signG, rw, cw, sw))
-        return dev, (parse_ok & known, gamma_ok, s_ok, pf_arr)
+        return ((Yw, xa, Gw, signG, rw, cw, sw),
+                (parse_ok & known, gamma_ok, s_ok, pf_arr))
 
     def _prep_betas(self, proofs, m: int):
         padded = list(proofs) + [b"\x00" * 80] * (m - len(proofs))
         (Gw, signG), decode_ok = V._prepare_betas_words(padded)
-        return (self._dev(Gw), self._dev(signG)), decode_ok
+        return (Gw, signG), decode_ok
 
     def _prep_kes_hash(self, kes_msgs, kes_expects, m: int):
         msgs = np.frombuffer(b"".join(kes_msgs), dtype=np.uint8)
         exps = np.frombuffer(b"".join(kes_expects), dtype=np.uint8)
         mw = _pad_words(B2.msg_words(msgs.reshape(-1, 64)), m)
         ew = _pad_words(B2.digest_words(exps.reshape(-1, 32)), m)
-        return self._dev(mw), self._dev(ew)
+        return mw, ew
 
     # -- simple batches ----------------------------------------------------------
     def verify_ed25519_batch(self, reqs):
@@ -218,7 +237,7 @@ class TorchBackend(CryptoBackend):
         n = len(reqs)
         with self._on_stream():
             args, parse_ok = self._prep_ed(reqs, self._pad(n))
-            ok = K.ed25519_split(*args).cpu().numpy()
+            ok = self._launch_lanes("ed25519_split", args).cpu().numpy()
         return [bool(o) and bool(p) for o, p in zip(ok[:n], parse_ok[:n])]
 
     def verify_vrf_batch(self, reqs):
@@ -231,9 +250,9 @@ class TorchBackend(CryptoBackend):
             return []
         n = len(reqs)
         with self._on_stream():
-            dev, (parse_ok, gamma_ok, s_ok, pf_arr) = self._prep_vrf(
+            args, (parse_ok, gamma_ok, s_ok, pf_arr) = self._prep_vrf(
                 reqs, self._pad(n))
-            rows = K.vrf_verify(*dev).cpu().numpy()
+            rows = self._launch_lanes("vrf_verify", args).cpu().numpy()
         oks, _betas = V._finish(rows, parse_ok, gamma_ok, s_ok, pf_arr, n)
         return oks
 
@@ -249,7 +268,7 @@ class TorchBackend(CryptoBackend):
             return out
         with self._on_stream():
             args, decode_ok = self._prep_betas(proofs, self._pad(n))
-            rows = K.gamma8(*args).cpu().numpy()
+            rows = self._launch_lanes("gamma8", args).cpu().numpy()
         return V._finish_betas(rows, decode_ok, n)
 
     def verify_kes_batch(self, reqs):
@@ -338,20 +357,21 @@ class TorchBackend(CryptoBackend):
             ne = self._pad(len(ed_reqs))
             args, parse_ok = self._prep_ed(ed_reqs, ne)
             state["ed"] = parse_ok
-            parts.append(K.ed25519_split(*args).to(torch.uint8))
+            parts.append(self._launch_lanes("ed25519_split", args)
+                         .to(torch.uint8))
         if vrf_reqs:
             nv = self._pad(len(vrf_reqs))
-            dev, masks = self._prep_vrf(vrf_reqs, nv)
+            args, masks = self._prep_vrf(vrf_reqs, nv)
             state["vrf"] = masks
-            parts.append(K.vrf_verify(*dev).reshape(-1))
+            parts.append(self._launch_lanes("vrf_verify", args).reshape(-1))
         if beta_proofs:
             nb = self._pad(len(beta_proofs))
             args, decode_ok = self._prep_betas(beta_proofs, nb)
             state["beta"] = decode_ok
-            parts.append(K.gamma8(*args).reshape(-1))
+            parts.append(self._launch_lanes("gamma8", args).reshape(-1))
         if kes_msgs:
             nk = self._pad(len(kes_msgs))
-            parts.append(K.kes_hash(*self._prep_kes_hash(
+            parts.append(self._launch_lanes("kes_hash", self._prep_kes_hash(
                 kes_msgs, kes_expects, nk)).to(torch.uint8))
         state.update(ne=ne, nv=nv, nb=nb, nk=nk)
         self._note_padding(

@@ -214,3 +214,58 @@ def test_disk_replay_of_a_cardano_db_on_the_card(dev, tmp_path, capsys):
     assert got["stream"]["era_crossings"] == 1
     assert all(K.LAUNCHES[k] > 0 for k in ("ed25519_split", "vrf_verify",
                                             "gamma8", "kes_hash"))
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_sharded_window_on_one_card_matches_single_device(dev, d):
+    """ShardedTorchBackend over d shards of cuda:0 (a stream each): a
+    mixed window with next-window betas gives the CPU reference's
+    verdicts and betas, each kernel (kes_hash too) launches once a shard,
+    and the unfolded packed buffer is byte for byte the one a single
+    launch a kernel gives at the same padding, on a second backend as
+    cold; the folded verdict and the sharded
+    full verify agree with the CPU reference."""
+    import functools
+
+    from ouroboros_tpu_torch.parallel import (ShardedTorchBackend, make_mesh,
+                                              sharded_batch_verify)
+    sk = hashlib.sha256(b"shard-card-ed").digest()
+    vsk = hashlib.sha256(b"shard-card-vrf").digest()
+    ksk = kes.KesSignKey(3, hashlib.sha256(b"shard-card-kes").digest())
+    vk, vvk = ed25519_ref.public_key(sk), vrf_ref.public_key(vsk)
+    reqs = []
+    for i in range(37):                 # no shard count divides the lanes
+        m = b"m%d" % i
+        reqs += [Ed25519Req(vk, m, ed25519_ref.sign(sk, m)),
+                 VrfReq(vvk, m, vrf_ref.prove(vsk, m)),
+                 KesReq(3, ksk.verification_key, 0, m,
+                        ksk.sign(m).to_bytes())]
+    reqs[30] = Ed25519Req(vk, b"x", reqs[30].sig)
+    proofs = [vrf_ref.prove(vsk, b"n%d" % i) for i in range(5)]
+    want = CpuRefBackend().verify_mixed(reqs)
+    mesh = make_mesh(devices=["cuda:0"] * d)
+    sb = ShardedTorchBackend(mesh, min_bucket=16)
+    before = dict(K.LAUNCHES)
+    st = sb.submit_window(reqs, proofs)
+    ok, betas = sb.finish_window(st)
+    assert {k: v - before[k] for k, v in K.LAUNCHES.items()
+            if v != before[k]} == {"ed25519_split": d, "vrf_verify": d,
+                                   "gamma8": d, "kes_hash": d}
+    assert st["nk"] > 0
+    assert ok == want
+    assert betas == {p: vrf_ref.proof_to_hash(p) for p in proofs}
+    sharded = st["host"].numpy().tobytes()
+    # one launch a kernel, on a backend whose KES cache is as cold
+    one = ShardedTorchBackend(mesh, min_bucket=16)
+    one._launch_lanes = functools.partial(TorchBackend._launch_lanes, one)
+    st1 = one.submit_window(reqs, proofs)
+    one.finish_window(st1)
+    assert st1["host"].numpy().tobytes() == sharded
+    sb = ShardedTorchBackend(mesh, min_bucket=16)
+    verdict, _ = sb.finish_window(sb.submit_window(reqs, proofs, fold=True))
+    assert verdict.first_bad == want.index(False) == 30
+    vks, msgs, sigs = ([getattr(r, f) for r in reqs
+                        if isinstance(r, Ed25519Req)]
+                       for f in ("vk", "msg", "sig"))
+    assert sharded_batch_verify(vks, msgs, sigs, sb.mesh) == \
+        K.batch_verify_ed25519(vks, msgs, sigs)

@@ -32,7 +32,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 72          # every module of every slice imported
+    assert n_modules >= 76          # every module of every slice imported
 
 
 def _require_no_card():
@@ -133,3 +133,19 @@ def test_db_analyser_torch_backend_raises_without_a_card():
         db_analyser.make_backend("torch", "cuda")
     assert db_analyser.make_backend("torch", "cpu").device.type == "cpu"
     assert db_analyser.make_backend("ref").name == "cpu-ref"
+
+
+def test_mesh_and_multichip_raise_without_a_card():
+    _require_no_card()
+    from ouroboros_tpu_torch import multichip
+    from ouroboros_tpu_torch.parallel import make_mesh
+    with pytest.raises(RuntimeError):
+        make_mesh()
+    with pytest.raises(RuntimeError):
+        make_mesh(devices=["cuda:0", "cuda:0"])
+    with pytest.raises(RuntimeError):
+        multichip.dryrun_multichip(2)
+    with pytest.raises(RuntimeError):
+        multichip.mesh_scaling_report(2, window=1)
+    with pytest.raises(RuntimeError):
+        multichip.main(["2", "--devices", "cuda:0,cuda:0"])
