@@ -108,11 +108,36 @@ the CUDA toolkit.  Phases:
    `batch_verify_ed25519`, ed25519_verify launched once a shard; and
    `multichip.dryrun_multichip` with its scaling report over the two
    shards;
-9. the standalone batch-verify path: `perf_probe --old` at 4096 Ed25519
+9. the chain database (storage/chaindb.py), every run on a fresh
+   TorchBackend with a cleared beta cache: phase 5's chain left on disk
+   as a running ChainDB leaves it (blocks 0-143 in an ImmutableDB, the
+   k = 2160 blocks 144-2303 in a VolatileDB) and restarted three times by
+   `ChainDB.open` (the immutable replay, then the initial selection, which
+   validates the 2160-block candidate in one `validate_blocks_batched`
+   call, about 8,600 Ed25519 and 4,300 VRF lanes) to the forger's
+   state_hash, each of the four window kernels launched; the same over
+   phase 5's KES-flipped-at-1500 and witness-flipped-at-300 chains, the
+   tip the block before the tampered one and the tip and invalid set a
+   ChainDB over CppBackend's on a copy of the files (the witness flip
+   keeps the block's hash, so every later block is invalid; the KES flip
+   changes it, so the later blocks are orphans no candidate reaches and
+   only the tampered one is invalid); the tip followed from block 2000,
+   304 `add_block`s each `extended`, `copy_to_immutable` after each as
+   the node's background does, their latency p50/p95/max, to the forger's
+   state_hash; and forks under BFT (Byron mainnet's seven genesis
+   delegates, k = 2160, one witnessed transaction a block): a 2400-block
+   chain added in order, fork A (100 back, 101 long: `switched` at its
+   last block with one 101-block validation), fork B (rooted 20 blocks
+   below the immutable tip: stored, never adopted), fork C (50 back, 60
+   long, its 30th header signed by another delegate: stored, never
+   adopted, its candidate's blocks from the 30th invalid), every result,
+   the tip, the chain and the invalid set equal to a ChainDB over
+   CppBackend fed the same sequence, ed25519_split launched;
+10. the standalone batch-verify path: `perf_probe --old` at 4096 Ed25519
    and 2048 VRF lanes (split and full Ed25519 verify, VRF verify, betas;
    each row asserts that every lane verifies), where ed25519_verify and
    the three kernels the probe drives must launch;
-10. the field microbenchmark path: field_chain, field_chain_lp (mul and
+11. the field microbenchmark path: field_chain, field_chain_lp (mul and
    sqr), point_chain and point_chain_x4 each held exactly against its
    plain version on the card for every operation at both of its chain
    lengths, at every lane count the microbenchmark runs (4096, the JAX
@@ -131,7 +156,7 @@ the CUDA toolkit.  Phases:
    host time.  After them one more replay of phase 5's valid chain runs
    under torch.profiler for the card's busy seconds: its some hundred
    thousand traced kernels could reach a later trace, so it comes last;
-11. a `main_path` JSON line, a `microbench_field` JSON line (the
+12. a `main_path` JSON line, a `microbench_field` JSON line (the
    per-operation rows at both lane counts), a `replay` JSON line
    (blocks/s, proofs/s, the producer's host_seq and submit seconds with
    the fill and fold inside it, and the consumer's drain seconds, per
@@ -149,7 +174,13 @@ the CUDA toolkit.  Phases:
    with it and phase 5's of this call, spans,
    launches, padding_stats, the tampered chains, the windows' lanes and
    verdicts at two and three shards, MULTICHIP_OBS less its metrics
-   snapshot and MESH_SCALING, the card), a `kernels` JSON line
+   snapshot and MESH_SCALING, the card), a `chaindb` JSON line (per
+   restart its seconds and blocks/s split into the immutable replay and
+   the initial selection, the fill and submit seconds inside it, its
+   validations and launches; the tampered restarts and CppBackend's
+   seconds; the followed tip's add latencies, seconds and blocks/s; the
+   forks' seconds per segment on both backends, validations and
+   launches; the phase's launches; the card), a `kernels` JSON line
    (each
    kernel's launches are those of its path: the main path's, the
    probe's for ed25519_verify, the microbenchmark's for the chains, and
@@ -158,7 +189,8 @@ the CUDA toolkit.  Phases:
    `disk_replay_launches`; every kernel's launches in the serve path's
    saturated leg as `serve_launches`, and in the first sharded replay
    (for ed25519_verify, the sharded batch verify) as
-   `sharded_launches`; its
+   `sharded_launches`, and in the chain database phase as
+   `chaindb_launches`; its
    launch shape as threads_per_lane and block; kes_hash's 65536-lane
    row under `wide`), the card line, and as
    the last line {"ok": true, "device": {...}}.
@@ -244,6 +276,24 @@ SERVE_SCALE = 1.0
 # SHARD_COUNTS (three: shard widths that are no power of two)
 SHARDS = 2
 SHARD_COUNTS = (2, 3)
+# the chain database: phase 5's chain left on disk as a running ChainDB
+# leaves it, k = 2160 (mainnet's security parameter) in the VolatileDB
+# and the rest in the ImmutableDB; restarted RESTART_RUNS times, then over
+# two of phase 5's tampered chains against CppBackend; following the tip
+# from block FOLLOW_FROM; forks under BFT with Byron mainnet's seven
+# genesis delegates
+CHAINDB_IMMUTABLE = REPLAY_BLOCKS - 2160
+RESTART_RUNS = 3
+RESTART_TAMPERED = ("kes_sig", "witness_post")
+FOLLOW_FROM = 2000
+BFT_NODES = 7
+BFT_K = 2160
+BFT_MAIN = 2400
+# fork name -> (blocks back from the tip it branches at, length, the
+# 1-based block signed by the wrong delegate or None); fork B is rooted
+# BFT_DEEP blocks below the k-deep immutable tip
+BFT_FORKS = {"A": (100, 101, None), "C": (50, 60, 30)}
+BFT_B_LEN, BFT_DEEP = 30, 20
 
 
 def log(*a):
@@ -978,6 +1028,351 @@ def sharded_phase(card: str, ext, chain, want_hash: bytes, chains: dict,
         "multichip_obs": obs, "mesh_scaling": scaling, "card": card}
 
 
+def _pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+
+def chaindb_phase(card: str, ext, chain, want_hash: bytes,
+                  chains: dict) -> dict:
+    """Phase 9: the chain database on the card, every run on a fresh
+    TorchBackend with a cleared beta cache.  Leg 1: phase 5's chain left
+    on disk (blocks 0-143 in an ImmutableDB, the k = 2160 blocks 144-2303
+    in a VolatileDB through put_block) and opened by ChainDB.open: the
+    immutable replay, then the initial selection, which must validate the
+    2160-block candidate in one validate_blocks_batched call to the
+    forger's state_hash, each of the four window kernels launched; three
+    times, then over phase 5's KES-flipped-at-1500 and
+    witness-flipped-at-300 chains, each held to a ChainDB over CppBackend
+    opened on a copy of the same files.  Leg 2: the VolatileDB holding
+    blocks 144-1999, blocks 2000-2303 added one at a time (each
+    `extended`, copy_to_immutable after each, as the node's background
+    does) to the forger's state_hash.  Leg 3: a 2400-block BFT chain of
+    seven delegates (k = 2160, MockLedger with one witnessed transaction
+    a block) added in order, then fork A (a switch with one 101-block
+    validation), fork B (rooted deeper than k: never adopted) and fork C
+    (a wrong signature at its 30th block: never adopted, its candidate's
+    blocks from there invalid), every result, tip, chain and invalid set
+    equal to a ChainDB over CppBackend fed the same sequence.  Returns the
+    `chaindb` line's dict; `launches` is the phase's own count."""
+    import hashlib
+    import shutil
+    import tempfile
+
+    from ouroboros_tpu_torch import chainsynth, replay
+    from ouroboros_tpu_torch.chain import point_of
+    from ouroboros_tpu_torch.consensus.headers import (ProtocolBlock,
+                                                       make_header)
+    from ouroboros_tpu_torch.consensus.ledger import ExtLedgerRules
+    from ouroboros_tpu_torch.consensus.protocols import Bft, bft_sign_header
+    from ouroboros_tpu_torch.crypto import ed25519_ref
+    from ouroboros_tpu_torch.crypto import kernels as K
+    from ouroboros_tpu_torch.crypto.backend import GLOBAL_BETA_CACHE
+    from ouroboros_tpu_torch.crypto.cpp_backend import CppBackend
+    from ouroboros_tpu_torch.crypto.torch_backend import TorchBackend
+    from ouroboros_tpu_torch.ledgers import (MockLedger, Tx, TxIn, TxOut,
+                                             make_tx)
+    from ouroboros_tpu_torch.storage import IoFS, chaindb as CDB
+    from ouroboros_tpu_torch.storage.stream import (pickle_decode,
+                                                    pickle_encode)
+    from ouroboros_tpu_torch.utils import cbor
+
+    class TimedChainDB(CDB.ChainDB):
+        """ChainDB whose open records its initial selection's seconds."""
+
+        def _initial_chain_selection(self):
+            t = time.perf_counter()
+            super()._initial_chain_selection()
+            self.selection_s = time.perf_counter() - t
+
+    # each candidate validation's block count, and the seconds inside
+    # validate_blocks_batched (the rest of a selection is the ChainDB's
+    # own: the successor walks that decode volatile blocks, the switch)
+    calls: list = []
+    validate_s = [0.0]
+    real_validate = CDB.validate_blocks_batched
+
+    def counted(ext_rules, blocks, st, backend=None):
+        calls.append(len(blocks))
+        t = time.perf_counter()
+        try:
+            return real_validate(ext_rules, blocks, st, backend=backend)
+        finally:
+            validate_s[0] += time.perf_counter() - t
+
+    def pt(p):
+        return (p.slot, p.hash.hex())
+
+    t_phase = time.perf_counter()
+    totals = {k: 0 for k in K.LAUNCHES}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_chaindb_")
+    CDB.validate_blocks_batched = counted
+    try:
+        def on_disk(name, blocks, n_imm, copy=False):
+            d = os.path.join(tmp, name)
+            chainsynth.write_chaindb(IoFS(d), blocks, n_imm)
+            if copy:
+                shutil.copytree(d, d + "-cpp")
+            return d
+
+        def restart(d, backend):
+            """ChainDB.open on `d` with a cleared beta cache and the
+            launches counted from 0: (db, its record)."""
+            GLOBAL_BETA_CACHE.clear()
+            K.reset_launches()
+            del calls[:]
+            validate_s[0] = 0.0
+            db, seconds, spans = replay.recording(
+                lambda: chainsynth.open_chaindb(IoFS(d), ext, backend,
+                                                db_cls=TimedChainDB),
+                ("window.submit", "precompute.fill", "window.fold"))
+            launches = dict(K.LAUNCHES)
+            for k, v in launches.items():
+                totals[k] += v
+            return db, {
+                "seconds": seconds, "selection_s": db.selection_s,
+                "immutable_replay_s": seconds - db.selection_s,
+                "validate_s": validate_s[0],
+                "fill_s": sum(spans["precompute.fill"]),
+                "submit_s": sum(spans["window.submit"]),
+                "validate_calls": list(calls),
+                "blocks_per_s": len(chain) / seconds,
+                "selection_blocks_per_s": (len(chain) - CHAINDB_IMMUTABLE)
+                / db.selection_s,
+                "launches": launches}
+
+        # -- leg 1: a restart with a full VolatileDB
+        n_vol = len(chain) - CHAINDB_IMMUTABLE
+        d = on_disk("restart", chain, CHAINDB_IMMUTABLE)
+        runs = []
+        for run in range(RESTART_RUNS):
+            db, rec = restart(d, TorchBackend())
+            missing = [k for k in MAIN_PATH if rec["launches"][k] == 0]
+            if db.tip_point() != point_of(chain[-1]) or db.invalid or \
+                    db.current_ledger.ledger.state_hash() != want_hash or \
+                    rec["validate_calls"] != [n_vol] or missing:
+                raise AssertionError(
+                    f"chaindb restart {run}: tip {pt(db.tip_point())}, "
+                    f"{len(db.invalid)} invalid, validations "
+                    f"{rec['validate_calls']}, kernels not launched "
+                    f"{missing}, or a state_hash not the forger's")
+            runs.append(rec)
+            log(f"chaindb restart {run}: {rec['seconds']:.3f} s "
+                f"({rec['blocks_per_s']:.1f} blocks/s): immutable replay "
+                f"of {CHAINDB_IMMUTABLE} blocks {rec['immutable_replay_s']:.3f}"
+                f" s, initial selection {rec['selection_s']:.3f} s "
+                f"({rec['selection_blocks_per_s']:.1f} blocks/s; one "
+                f"{n_vol}-block validation {rec['validate_s']:.3f} s, its "
+                f"submit {rec['submit_s']:.3f} s, fill {rec['fill_s']:.3f} "
+                f"s); "
+                f"tip block {len(chain) - 1}, state_hash == forger's; "
+                f"launches {rec['launches']}")
+        tampered = {}
+        for name in RESTART_TAMPERED:
+            blocks = chains[name]
+            at = REPLAY_TAMPERS[name][0]
+            d = on_disk(name, blocks, CHAINDB_IMMUTABLE, copy=True)
+            db, rec = restart(d, TorchBackend())
+            t = time.perf_counter()
+            GLOBAL_BETA_CACHE.clear()
+            ref = chainsynth.open_chaindb(IoFS(d + "-cpp"), ext, CppBackend())
+            cpp_s = time.perf_counter() - t
+            # the witness flip keeps block `at`'s hash, so every later
+            # block is on the failed candidate; the KES flip changes it,
+            # so the later blocks are orphans no candidate reaches
+            bad = blocks[at:] if name == "witness_post" else [blocks[at]]
+            if db.tip_point() != point_of(blocks[at - 1]) or \
+                    set(db.invalid) != {b.hash for b in bad} or \
+                    (pt(db.tip_point()), dict(db.invalid)) != \
+                    (pt(ref.tip_point()), dict(ref.invalid)) or \
+                    db.current_ledger.ledger.state_hash() != \
+                    ref.current_ledger.ledger.state_hash():
+                raise AssertionError(
+                    f"chaindb restart over the {name} chain: tip "
+                    f"{pt(db.tip_point())}, {len(db.invalid)} invalid; "
+                    f"CppBackend's tip {pt(ref.tip_point())}, "
+                    f"{len(ref.invalid)} invalid")
+            rec.update(tip_block=at - 1, invalid=len(db.invalid),
+                       cpp_seconds=cpp_s)
+            tampered[name] = rec
+            log(f"chaindb restart over the {name} chain: tip block "
+                f"{at - 1}, {len(db.invalid)} invalid, == CppBackend's "
+                f"(validations {rec['validate_calls']}); {rec['seconds']:.3f}"
+                f" s, CppBackend {cpp_s:.3f} s; launches {rec['launches']}")
+
+        # -- leg 2: following the tip
+        d = on_disk("follow", chain[:FOLLOW_FROM], CHAINDB_IMMUTABLE)
+        db, opened = restart(d, TorchBackend())
+        if db.tip_point() != point_of(chain[FOLLOW_FROM - 1]):
+            raise AssertionError(f"chaindb follow: opened at "
+                                 f"{pt(db.tip_point())}")
+        K.reset_launches()
+        add_s, bg_s, copied = [], 0.0, 0
+        t_leg = time.perf_counter()
+        for b in chain[FOLLOW_FROM:]:
+            t = time.perf_counter()
+            r = db.add_block(b)
+            add_s.append(time.perf_counter() - t)
+            if r.kind != "extended":
+                raise AssertionError(f"chaindb follow: block {b.block_no} "
+                                     f"{r.kind}, expected extended")
+            t = time.perf_counter()
+            copied += db.copy_to_immutable()
+            bg_s += time.perf_counter() - t
+        leg_s = time.perf_counter() - t_leg
+        follow_launches = dict(K.LAUNCHES)
+        for k, v in follow_launches.items():
+            totals[k] += v
+        if db.tip_point() != point_of(chain[-1]) or \
+                db.current_ledger.ledger.state_hash() != want_hash:
+            raise AssertionError("chaindb follow: tip or state_hash not the "
+                                 "forger's")
+        n_add = len(chain) - FOLLOW_FROM
+        follow = {
+            "open": opened, "adds": n_add, "seconds": leg_s,
+            "blocks_per_s": n_add / leg_s,
+            "add_ms": {"p50": _pct(add_s, 0.50) * 1e3,
+                       "p95": _pct(add_s, 0.95) * 1e3,
+                       "max": max(add_s) * 1e3},
+            "copy_to_immutable_s": bg_s, "copied": copied,
+            "launches": follow_launches}
+        log(f"chaindb follow: opened on blocks 0-{FOLLOW_FROM - 1} in "
+            f"{opened['seconds']:.3f} s, then {n_add} adds, each extended, "
+            f"in {leg_s:.3f} s ({follow['blocks_per_s']:.1f} blocks/s); add "
+            f"ms p50 {follow['add_ms']['p50']:.3f}, p95 "
+            f"{follow['add_ms']['p95']:.3f}, max {follow['add_ms']['max']:.3f}"
+            f"; copy_to_immutable {bg_s:.3f} s ({copied} copied); "
+            f"state_hash == forger's; launches {follow_launches}")
+
+        # -- leg 3: forks under BFT
+        t = time.perf_counter()
+        sks = [hashlib.sha256(b"bft-delegate-%d" % i).digest()
+               for i in range(BFT_NODES)]
+        owner_sk = hashlib.sha256(b"bft-owner").digest()
+        owner = ed25519_ref.public_key(owner_sk)
+        bft = ExtLedgerRules(
+            Bft([ed25519_ref.public_key(sk) for sk in sks], k=BFT_K),
+            MockLedger({owner: 1000}))
+
+        def branch(root, txid, n, slot0, bad_at=None):
+            out = []
+            for i in range(n):
+                slot = slot0 + i
+                tx = make_tx([TxIn(txid, 0)], [TxOut(owner, 1000)],
+                             [owner_sk])
+                leader = slot % BFT_NODES
+                h = make_header(root.header if root else None, slot, (tx,),
+                                issuer=leader)
+                signer = (leader + 1) % BFT_NODES if i + 1 == bad_at \
+                    else leader
+                root, txid = ProtocolBlock(bft_sign_header(sks[signer], h),
+                                           (tx,)), tx.txid
+                out.append((root, txid))
+            return out
+
+        main = branch(None, MockLedger.GENESIS_TXID, BFT_MAIN, 0)
+        back_a, len_a, _ = BFT_FORKS["A"]
+        fork_a = branch(*main[-1 - back_a], len_a, BFT_MAIN)
+        b_root = main[BFT_MAIN - BFT_K - BFT_DEEP]
+        slot = BFT_MAIN + len_a
+        fork_b = branch(*b_root, BFT_B_LEN, slot)
+        back_c, len_c, bad_c = BFT_FORKS["C"]
+        slot += BFT_B_LEN
+        fork_c = branch(*fork_a[-1 - back_c], len_c, slot, bad_at=bad_c)
+        forge_s = time.perf_counter() - t
+
+        def bft_db(name, backend):
+            return CDB.ChainDB.open(
+                IoFS(os.path.join(tmp, name)), bft, pickle_encode,
+                pickle_decode,
+                lambda raw: ProtocolBlock.decode(cbor.loads(raw),
+                                                 tx_decode=Tx.decode),
+                backend=backend)
+
+        dbs = {"torch": bft_db("bft", TorchBackend()),
+               "cpp": bft_db("bft-cpp", CppBackend())}
+        results = {"torch": [], "cpp": []}
+        seconds, validations, switch_s = {}, {}, {}
+        K.reset_launches()
+        for seg, blocks in (("main", main), ("A", fork_a), ("B", fork_b),
+                            ("C", fork_c)):
+            for which, cdb in dbs.items():
+                del calls[:]
+                t = time.perf_counter()
+                for b, _ in blocks:
+                    t_add = time.perf_counter()
+                    r = cdb.add_block(b)
+                    last_add_s = time.perf_counter() - t_add
+                    results[which].append((seg, r.kind, pt(r.new_tip)))
+                    cdb.copy_to_immutable()
+                seconds.setdefault(seg, {})[which] = time.perf_counter() - t
+                validations.setdefault(seg, {})[which] = list(calls)
+                if seg == "A":
+                    switch_s[which] = last_add_s
+            if seg == "main" and dbs["torch"].immutable_tip_point().slot \
+                    < b_root[0].slot:
+                raise AssertionError("chaindb forks: fork B's root is not "
+                                     "below the immutable tip")
+        bft_launches = dict(K.LAUNCHES)
+        for k, v in bft_launches.items():
+            totals[k] += v
+        got = {which: (results[which], pt(cdb.tip_point()),
+                       [pt(p) for p in cdb.current_chain.points()],
+                       dict(cdb.invalid)) for which, cdb in dbs.items()}
+        kinds = {seg: [k for s, k, _t in results["torch"] if s == seg]
+                 for seg in ("main", "A", "B", "C")}
+        db = dbs["torch"]
+        bad_hash = fork_c[bad_c - 1][0].hash
+        if got["torch"] != got["cpp"] or \
+                validations["A"]["torch"] != [len_a] or \
+                validations["C"]["torch"] != [back_c + 1] or \
+                set(kinds["main"]) != {"extended"} or \
+                kinds["A"] != ["stored"] * (len_a - 1) + ["switched"] or \
+                set(kinds["B"]) != {"stored"} or \
+                set(kinds["C"]) != {"stored"} or \
+                db.tip_point() != point_of(fork_a[-1][0]) or \
+                bad_hash not in db.invalid or \
+                bft_launches["ed25519_split"] == 0:
+            raise AssertionError(
+                f"chaindb forks: results "
+                f"{ {seg: sorted(set(k)) for seg, k in kinds.items()} }, "
+                f"validations {validations}, tip {pt(db.tip_point())}, {len(db.invalid)} invalid, "
+                f"== CppBackend's: {got['torch'] == got['cpp']}, "
+                f"launches {bft_launches}")
+        n_bft = sum(len(x) for x in (main, fork_a, fork_b, fork_c))
+        forks = {
+            "nodes": BFT_NODES, "k": BFT_K, "blocks": n_bft,
+            "forge_s": forge_s, "seconds": seconds,
+            "main_blocks_per_s": BFT_MAIN / seconds["main"]["torch"],
+            "switch_add_s": switch_s,
+            "validations": {seg: v["torch"] for seg, v in validations.items()
+                            if seg != "main"},
+            "invalid": len(db.invalid),
+            "immutable_tip_slot": db.immutable_tip_point().slot,
+            "launches": bft_launches}
+        log(f"chaindb forks (BFT, {BFT_NODES} delegates, k = {BFT_K}): "
+            f"{n_bft} blocks forged in {forge_s:.3f} s; main chain of "
+            f"{BFT_MAIN} adds {seconds['main']['torch']:.3f} s "
+            f"({forks['main_blocks_per_s']:.1f} blocks/s; CppBackend "
+            f"{seconds['main']['cpp']:.3f} s); fork A switched at its "
+            f"{len_a}th block in {switch_s['torch'] * 1e3:.3f} ms "
+            f"(CppBackend {switch_s['cpp'] * 1e3:.3f} ms; "
+            f"{seconds['A']['torch']:.3f} s for its {len_a} adds), fork B "
+            f"stored, fork C stored with "
+            f"{len(db.invalid)} invalid; every result, the tip, the chain "
+            f"and the invalid set == CppBackend's; launches {bft_launches}")
+    finally:
+        CDB.validate_blocks_batched = real_validate
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    log(f"chaindb phase: {phase_s:.3f} s")
+    return {
+        "seconds": phase_s,
+        "restart": {"blocks": len(chain), "immutable": CHAINDB_IMMUTABLE,
+                    "volatile": n_vol, "runs": runs, "tampered": tampered},
+        "follow": follow, "forks": forks, "launches": totals, "card": card}
+
+
 def replay_profiled(ext, chain) -> dict:
     """One more replay of the valid chain under torch.profiler, apart from
     the timed runs: the card's busy seconds and the kernels that took
@@ -1352,7 +1747,10 @@ def main() -> int:
     sh = sharded_phase(card, *replayed, tampered_chains, rp, windows,
                        bad_req, runs, ed_f)
 
-    # -- 9. the standalone batch-verify path --------------------------------
+    # -- 9. the chain database ----------------------------------------------
+    cd = chaindb_phase(card, *replayed, tampered_chains)
+
+    # -- 10. the standalone batch-verify path -------------------------------
     K.reset_launches()
     t = time.perf_counter()
     probe_rows = perf_probe.main(PROBE_ARGS)
@@ -1364,7 +1762,7 @@ def main() -> int:
         raise AssertionError(f"kernels not launched on the probe's path: "
                              f"{missing}")
 
-    # -- 10. the field microbenchmark path ----------------------------------
+    # -- 11. the field microbenchmark path ----------------------------------
     # every (lanes, op, k) its runs launch, and the first n - 3 lanes of
     # each lane count, exactly against the plain versions; a sample of the
     # JAX shape's lanes against Python integers
@@ -1466,12 +1864,13 @@ def main() -> int:
                              f"{not_dev}")
     rp["profiled"] = replay_profiled(*replayed[:2])
 
-    # -- 11. report -----------------------------------------------------------
+    # -- 12. report -----------------------------------------------------------
     serve_launches = sv["card"]["saturated"]["launches"]
     for entry in report:
         name = entry["name"]
         entry["max_abs_err"] = max_err[name]
         entry["serve_launches"] = serve_launches[name]
+        entry["chaindb_launches"] = cd["launches"][name]
         entry["sharded_launches"] = (sh["batch_verify"]["launches"][name]
                                      if name == "ed25519_verify"
                                      else sh["launches"][0][name])
@@ -1503,6 +1902,7 @@ def main() -> int:
     print(json.dumps({"disk_replay": dr}))
     print(json.dumps({"serve": sv}))
     print(json.dumps({"sharded": sh}))
+    print(json.dumps({"chaindb": cd}))
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -134,3 +134,38 @@ def forge_shelley(blocks: int, txs_per_block: int = 2, pools: int = 2,
     if bad_witness_at is None:
         return ext, out, state
     return ext, out, state, variant
+
+
+# -- the chain database's on-disk state (storage/chaindb.py) ------------------
+
+def shelley_block_decode(raw: bytes) -> ProtocolBlock:
+    """A Shelley block from its bytes: db_analyser's span-retaining
+    decoder (six body fields a transaction, then its witnesses)."""
+    from .eras.shelley import ShelleyTx
+    return ProtocolBlock.from_bytes(raw, tx_decode=ShelleyTx.decode,
+                                    tx_body_elems=6)
+
+
+def write_chaindb(fs, blocks, n_immutable: int) -> None:
+    """Leave `blocks` on `fs` as a running ChainDB leaves a chain: the
+    first `n_immutable` in the ImmutableDB, the rest in the VolatileDB
+    (`VolatileDB.put_block`), no ledger snapshot; chunks of 100 slots
+    and 50 blocks a volatile file, `ChainDB.open`'s defaults."""
+    from .storage import ImmutableDB, VolatileDB
+    imm = ImmutableDB.open(fs, 100)
+    for b in blocks[:n_immutable]:
+        imm.append_block(b.slot, b.block_no, b.hash, b.prev_hash, b.bytes)
+    vol = VolatileDB.open(fs, 50)
+    for b in blocks[n_immutable:]:
+        vol.put_block(b.hash, b.prev_hash, b.slot, b.block_no, b.bytes)
+
+
+def open_chaindb(fs, ext, backend, db_cls=None):
+    """`ChainDB.open` over a Shelley chain on `fs` (`write_chaindb`'s
+    layout) with the port's snapshot codec: the immutable replay, then
+    the initial chain selection, whose candidates `backend` verifies.
+    `db_cls` is ChainDB (the default) or a subclass of it."""
+    from .storage.chaindb import ChainDB
+    from .storage.stream import pickle_decode, pickle_encode
+    return (db_cls or ChainDB).open(fs, ext, pickle_encode, pickle_decode,
+                                    shelley_block_decode, backend=backend)

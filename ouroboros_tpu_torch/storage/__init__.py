@@ -1,5 +1,5 @@
-"""Storage layer: injectable FS, ImmutableDB, LedgerDB and the streaming
-replay engine.
+"""Storage layer: injectable FS, ImmutableDB, VolatileDB, LedgerDB, ChainDB
+and the streaming replay engine.
 
 Reference: ouroboros-consensus/src/Ouroboros/Consensus/Storage/ (SURVEY.md §2
 L5 storage trio + ChainDB).  Every component takes an `FsApi` so tests run
@@ -7,11 +7,11 @@ on the in-memory MockFS with fault injection (the HasFS lesson,
 Storage/FS/API.hs).
 
 Ported from `ouroboros_tpu/storage/__init__.py` (the port imports nothing of
-the JAX package), without the VolatileDB and the ChainDB (not ported yet:
-the on-disk replay reads only the ImmutableDB and the LedgerDB snapshots).
+the JAX package), with the same exports.
 """
 from .fs import FsApi, IoFS, MockFS, FsError, crc32
 from .immutabledb import ImmutableDB
+from .volatiledb import VolatileDB
 from .ledgerdb import LedgerDB, DiskPolicy
 from .stream import (
     BlockPrefetcher, StreamConfig, StreamingReplayEngine,
@@ -20,7 +20,7 @@ from .stream import (
 
 __all__ = [
     "FsApi", "IoFS", "MockFS", "FsError", "crc32",
-    "ImmutableDB", "LedgerDB", "DiskPolicy",
+    "ImmutableDB", "VolatileDB", "LedgerDB", "DiskPolicy",
     "BlockPrefetcher", "StreamConfig", "StreamingReplayEngine",
     "StreamReplayResult",
 ]

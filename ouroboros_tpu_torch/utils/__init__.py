@@ -1,1 +1,2 @@
-"""utils — CBOR and the typed tracers (copies of the JAX package's)."""
+"""utils — CBOR, the typed tracers and the resource registry (copies of
+the JAX package's)."""

@@ -8,7 +8,8 @@ serve entry point (`ouroboros_tpu_torch.serve`) against the JAX package's.
   ouro-race at K = 16, the break-even table's persistence and calibration
   (in the port's own cache directory: a JAX package table is never read),
   PrecheckedBackend, the mempool seam, the coalesced header window (on a
-  forged TPraos chain: the port has no BFT protocol), the IO runtime and
+  BFT window, as the JAX package's case, and on a forged TPraos
+  chain), the IO runtime and
   the `service.*` metrics; over ModeledBackend, PrecheckedBackend and
   CpuRefBackend.
 - A service over `TorchBackend(device="cpu")` (the kernels' plain
@@ -607,7 +608,7 @@ def test_coalesced_header_window_matches_direct_batched(tpraos_chain):
     valid window AND on a window with a flipped KES signature (same valid
     prefix, same error classification) — the caught-up ChainSync flush
     path can never drift from the syncing one.  The JAX package's case
-    runs a BFT window; the port's protocol is TPraos."""
+    runs a BFT window (the next test); this one runs TPraos."""
     ext, blocks = tpraos_chain
     protocol, genesis = ext.protocol, ext.initial_state()
     headers = [b.header for b in blocks]
@@ -643,6 +644,58 @@ def test_coalesced_header_window_matches_direct_batched(tpraos_chain):
         assert type(coalesced.error) is type(direct.error)
         assert not _leaked(trace)
     assert direct.n_valid == 3 and "proof" in str(direct.error)
+
+
+def test_coalesced_bft_header_window_matches_direct_batched():
+    """tests/test_batching.py's case on the port's BFT protocol: the
+    coalesced header window equals validate_headers_batched on a valid
+    window and on one with a corrupted signature at header 3 (same valid
+    prefix, same error class)."""
+    from ouroboros_tpu_torch.consensus.header_validation import HeaderState
+    from ouroboros_tpu_torch.consensus.headers import make_header
+    from ouroboros_tpu_torch.consensus.protocols import Bft, bft_sign_header
+    sks = [hashlib.sha256(b"svc-bft-%d" % i).digest() for i in range(3)]
+    p = Bft([ed25519_ref.public_key(sk) for sk in sks])
+    headers, prev = [], None
+    for j in range(6):
+        prev = bft_sign_header(sks[p.slot_leader(j)],
+                               make_header(prev, j, (), p.slot_leader(j)))
+        headers.append(prev)
+    bad = list(headers)
+    sig = bytearray(bad[3].get("bft_sig"))
+    sig[0] ^= 0xFF
+    bad[3] = bad[3].with_fields(bft_sig=bytes(sig))
+    prev = bad[3]
+    for j in range(4, 6):       # re-link: only the signature is wrong
+        bad[j] = bft_sign_header(sks[p.slot_leader(j)],
+                                 make_header(prev, j, (), p.slot_leader(j)))
+        prev = bad[j]
+
+    for window in (headers, bad):
+        direct = validate_headers_batched(
+            p, window, HeaderState.genesis(p), lambda i, h: None,
+            backend=CpuRefBackend())
+
+        async def main(w=window):
+            svc = VerifyService(
+                ModeledBackend(1e-3, 1e-5, name="dev"),
+                cpu_ref=CpuRefBackend(),
+                config=ServiceConfig(max_batch=16,
+                                     default_deadline=0.005),
+                break_even=_table(2))
+            await svc.start()
+            res = await validate_headers_coalesced(
+                p, w, HeaderState.genesis(p), lambda i, h: None, svc)
+            await svc.stop()
+            return res
+
+        coalesced, trace = sim.run_trace(main())
+        assert coalesced.n_valid == direct.n_valid
+        assert coalesced.states == direct.states
+        assert (coalesced.error is None) == (direct.error is None)
+        assert type(coalesced.error) is type(direct.error)
+        assert not _leaked(trace)
+    assert direct.n_valid == 3
 
 
 def test_service_runs_identically_under_io_runtime():

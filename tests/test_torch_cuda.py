@@ -269,3 +269,48 @@ def test_sharded_window_on_one_card_matches_single_device(dev, d):
                        for f in ("vk", "msg", "sig"))
     assert sharded_batch_verify(vks, msgs, sigs, sb.mesh) == \
         K.batch_verify_ed25519(vks, msgs, sigs)
+
+
+def test_chaindb_restart_on_the_card(dev):
+    """chip_smoke.py's chain-database restart at a small size: a 30-block
+    Shelley chain (KES depth 3), 4 blocks in the ImmutableDB and 26 in the
+    VolatileDB, opened by the port's ChainDB on TorchBackend: the initial
+    chain selection validates the 26-block candidate in one call to the
+    forger's state hash through the four window kernels, and a witness
+    flipped at block 17 stops the tip at block 16, with every later block
+    invalid, as on the port's CppBackend."""
+    import dataclasses
+
+    from ouroboros_tpu_torch import chainsynth
+    from ouroboros_tpu_torch.consensus.headers import ProtocolBlock
+    from ouroboros_tpu_torch.crypto.backend import GLOBAL_BETA_CACHE
+    from ouroboros_tpu_torch.crypto.cpp_backend import CppBackend
+    from ouroboros_tpu_torch.storage import MockFS
+    ext, blocks, state = chainsynth.forge_shelley(30, epoch_length=10,
+                                                  kes_depth=3)
+    fs = MockFS()
+    chainsynth.write_chaindb(fs, blocks, 4)
+    GLOBAL_BETA_CACHE.clear()
+    K.reset_launches()
+    db = chainsynth.open_chaindb(fs, ext, TorchBackend(device=dev))
+    assert db.tip_point().hash == blocks[-1].hash and not db.invalid
+    assert (db.current_ledger.ledger.state_hash()
+            == state.ledger.state_hash())
+    assert all(K.LAUNCHES[k] > 0 for k in ("ed25519_split", "vrf_verify",
+                                            "gamma8", "kes_hash"))
+    tx = blocks[17].body[0]
+    (vk, sig), = tx.witnesses
+    bad = list(blocks)
+    bad[17] = ProtocolBlock(blocks[17].header, (dataclasses.replace(
+        tx, witnesses=((vk, sig[:40] + bytes([sig[40] ^ 1]) + sig[41:]),)),)
+        + blocks[17].body[1:])
+    got = []
+    for backend in (TorchBackend(device=dev), CppBackend()):
+        fs = MockFS()
+        chainsynth.write_chaindb(fs, bad, 4)
+        GLOBAL_BETA_CACHE.clear()
+        db = chainsynth.open_chaindb(fs, ext, backend)
+        got.append((db.tip_point(), sorted(db.invalid)))
+    assert got[0] == got[1]
+    assert got[0][0].hash == blocks[16].hash
+    assert got[0][1] == sorted(b.hash for b in bad[17:])

@@ -11,12 +11,30 @@ import sys
 import pytest
 import torch
 
+# the chain database's slice, each named so that a module the walk misses
+# still fails the check
+_NAMED = [
+    "ouroboros_tpu_torch.consensus.protocols.bft",
+    "ouroboros_tpu_torch.consensus.protocols.pbft",
+    "ouroboros_tpu_torch.consensus.protocols.leader_schedule",
+    "ouroboros_tpu_torch.testing",
+    "ouroboros_tpu_torch.testing.dual",
+    "ouroboros_tpu_torch.chain.chain",
+    "ouroboros_tpu_torch.chain.fragment",
+    "ouroboros_tpu_torch.utils.registry",
+    "ouroboros_tpu_torch.storage.volatiledb",
+    "ouroboros_tpu_torch.storage.chaindb",
+]
+
 _CHECK = r"""
 import importlib, pkgutil, sys
 import ouroboros_tpu_torch
 names = ["ouroboros_tpu_torch"] + [
     m.name for m in pkgutil.walk_packages(ouroboros_tpu_torch.__path__,
                                           "ouroboros_tpu_torch.")]
+named = sys.argv[1:]
+missing = [n for n in named if n not in names]
+assert not missing, missing
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
@@ -28,11 +46,11 @@ assert not bad, bad
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
-    out = subprocess.run([sys.executable, "-c", _CHECK], capture_output=True,
-                         text=True, timeout=300)
+    out = subprocess.run([sys.executable, "-c", _CHECK, *_NAMED],
+                         capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 76          # every module of every slice imported
+    assert n_modules >= 86          # every module of every slice imported
 
 
 def _require_no_card():
@@ -149,3 +167,33 @@ def test_mesh_and_multichip_raise_without_a_card():
         multichip.mesh_scaling_report(2, window=1)
     with pytest.raises(RuntimeError):
         multichip.main(["2", "--devices", "cuda:0,cuda:0"])
+
+
+def test_chaindb_default_backend_raises_without_a_card():
+    """A ChainDB given no backend validates on `default_backend()`, the
+    card: adding a block raises without one, and nothing falls back to
+    the CPU."""
+    _require_no_card()
+    import hashlib
+
+    from ouroboros_tpu_torch.consensus.headers import (ProtocolBlock,
+                                                       make_header)
+    from ouroboros_tpu_torch.consensus.ledger import ExtLedgerRules
+    from ouroboros_tpu_torch.consensus.protocols import Bft, bft_sign_header
+    from ouroboros_tpu_torch.crypto import backend, ed25519_ref
+    from ouroboros_tpu_torch.ledgers import MockLedger, Tx
+    from ouroboros_tpu_torch.storage import MockFS
+    from ouroboros_tpu_torch.storage.chaindb import ChainDB
+    from ouroboros_tpu_torch.storage.stream import (pickle_decode,
+                                                    pickle_encode)
+    from ouroboros_tpu_torch.utils import cbor
+    backend.set_default_backend(None)
+    sk = hashlib.sha256(b"bft-0").digest()
+    ext = ExtLedgerRules(Bft([ed25519_ref.public_key(sk)]), MockLedger({}))
+    db = ChainDB.open(MockFS(), ext, pickle_encode, pickle_decode,
+                      lambda raw: ProtocolBlock.decode(cbor.loads(raw),
+                                                       tx_decode=Tx.decode))
+    blk = ProtocolBlock(bft_sign_header(sk, make_header(None, 0, (),
+                                                        issuer=0)), ())
+    with pytest.raises(RuntimeError):
+        db.add_block(blk)
