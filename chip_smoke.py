@@ -133,11 +133,30 @@ the CUDA toolkit.  Phases:
    adopted, its candidate's blocks from the 30th invalid), every result,
    the tip, the chain and the invalid set equal to a ChainDB over
    CppBackend fed the same sequence, ed25519_split launched;
-10. the standalone batch-verify path: `perf_probe --old` at 4096 Ed25519
+10. the node-to-node sync path (node/, network/): two NodeKernels in
+   the port's simulator, wired by `connect_nodes` (0.05 s a link) with
+   the Shelley codecs, both clocks a slot past the chain's tip.  A fresh
+   follower on a new TorchBackend syncs phase 5's chain from a server
+   over phase 9's layout (blocks 0-143 immutable, 144-2303 volatile),
+   ChainSync's window 32, to the forger's state_hash, each of the four
+   window kernels launched; a server of blocks 0-1500 of the
+   KES-flipped chain, where the follower's ChainSync must raise
+   ChainSyncClientError on the window that holds block 1500 (its ChainDB
+   keeps what BlockFetch had adopted by then), and one of the
+   witness-flipped-at-300 chain, where the follower's ChainDB must reject
+   block 300 and stay at 299, each follower's tip, invalid set and error
+   those of a follower on CppBackend; last a follower synced to block
+   1999, then given a VerifyService (serve.py's config, the break-even
+   table calibrated against CppBackend) while blocks 2000-2303 are added
+   to the server one at a time: each header flushes alone through
+   `validate_headers_coalesced`, to the forger's state_hash.  The bad
+   peers' and the last follower run on the first one's backend, its key
+   cache warm;
+11. the standalone batch-verify path: `perf_probe --old` at 4096 Ed25519
    and 2048 VRF lanes (split and full Ed25519 verify, VRF verify, betas;
    each row asserts that every lane verifies), where ed25519_verify and
    the three kernels the probe drives must launch;
-11. the field microbenchmark path: field_chain, field_chain_lp (mul and
+12. the field microbenchmark path: field_chain, field_chain_lp (mul and
    sqr), point_chain and point_chain_x4 each held exactly against its
    plain version on the card for every operation at both of its chain
    lengths, at every lane count the microbenchmark runs (4096, the JAX
@@ -156,7 +175,7 @@ the CUDA toolkit.  Phases:
    host time.  After them one more replay of phase 5's valid chain runs
    under torch.profiler for the card's busy seconds: its some hundred
    thousand traced kernels could reach a later trace, so it comes last;
-12. a `main_path` JSON line, a `microbench_field` JSON line (the
+13. a `main_path` JSON line, a `microbench_field` JSON line (the
    per-operation rows at both lane counts), a `replay` JSON line
    (blocks/s, proofs/s, the producer's host_seq and submit seconds with
    the fill and fold inside it, and the consumer's drain seconds, per
@@ -180,7 +199,14 @@ the CUDA toolkit.  Phases:
    validations and launches; the tampered restarts and CppBackend's
    seconds; the followed tip's add latencies, seconds and blocks/s; the
    forks' seconds per segment on both backends, validations and
-   launches; the phase's launches; the card), a `kernels` JSON line
+   launches; the phase's launches; the card), a `node` JSON line (leg
+   1's seconds, blocks/s, flush count, sizes and ms p50/p95/max, add ms,
+   the wall split into header flushes, ChainDB adds and the rest, and
+   launches; each bad peer's tip, invalid set, error, seconds and
+   launches on both backends; leg 3's sync, adoption ms p50/p95/max, the
+   service's device and CPU fallback batches, the break-even table and
+   launches, the server's adds counted apart; the phase's launches, the
+   followers' only; the card), a `kernels` JSON line
    (each
    kernel's launches are those of its path: the main path's, the
    probe's for ed25519_verify, the microbenchmark's for the chains, and
@@ -189,8 +215,8 @@ the CUDA toolkit.  Phases:
    `disk_replay_launches`; every kernel's launches in the serve path's
    saturated leg as `serve_launches`, and in the first sharded replay
    (for ed25519_verify, the sharded batch verify) as
-   `sharded_launches`, and in the chain database phase as
-   `chaindb_launches`; its
+   `sharded_launches`, in the chain database phase as
+   `chaindb_launches`, and in the node phase as `node_launches`; its
    launch shape as threads_per_lane and block; kes_hash's 65536-lane
    row under `wide`), the card line, and as
    the last line {"ok": true, "device": {...}}.
@@ -294,6 +320,14 @@ BFT_MAIN = 2400
 # BFT_DEEP blocks below the k-deep immutable tip
 BFT_FORKS = {"A": (100, 101, None), "C": (50, 60, 30)}
 BFT_B_LEN, BFT_DEEP = 30, 20
+# the node-to-node sync path: two NodeKernels in the simulator, wired as
+# ThreadNet wires them (0.05 s a link), both clocks a slot past the
+# chain's tip; a run that has not finished by NODE_VIRTUAL_LIMIT_S
+# virtual seconds fails
+NODE_DELAY = 0.05
+NODE_SLOT_S = 1.0
+NODE_POLL_S = 0.05
+NODE_VIRTUAL_LIMIT_S = 3600.0
 
 
 def log(*a):
@@ -1373,6 +1407,445 @@ def chaindb_phase(card: str, ext, chain, want_hash: bytes,
         "follow": follow, "forks": forks, "launches": totals, "card": card}
 
 
+def _thread_failures(*kernels) -> list:
+    """(node, thread, exception) of every finished thread of `kernels`
+    that raised; a cancelled thread is no failure."""
+    from ouroboros_tpu_torch import simharness as sim
+    out = []
+    for k in kernels:
+        for t in k._threads:
+            if not t.done:
+                continue
+            try:
+                t.poll()
+            except sim.AsyncCancelled:
+                pass
+            except BaseException as e:
+                out.append((k.label, t.label, e))
+    return out
+
+
+def node_phase(card: str, ext, chain, want_hash: bytes,
+               chains: dict) -> dict:
+    """Phase 10: the node-to-node sync path (node/, network/) on the
+    card.  Two NodeKernels in the port's simulator, wired by
+    `connect_nodes(follower, server, delay=NODE_DELAY)` (the handshake,
+    then ChainSync, BlockFetch and KeepAlive over one mux bearer each
+    way), the blocks carried as CBOR by the Shelley decoders
+    (`ProtocolHeader.decode`, `ProtocolBlock.decode` with
+    `ShelleyTx.decode`).  Both clocks stand past the chain's tip: the
+    simulation sleeps until the slot after the chain's last before the
+    kernels start, so no block is from the future (the future-block rule
+    is unchanged).  A card call takes no virtual time: every time here
+    is wall time.
+
+    Leg 1: a server over phase 9's layout (blocks 0-143 immutable, the
+    k = 2160 blocks 144-2303 volatile, opened on its own backend first)
+    and a fresh follower at genesis on a new backend with a cleared beta
+    cache, `chain_sync_window` the kernel's 32, run until the tips are
+    equal: the follower's ledger at the forger's state_hash, each of the
+    four window kernels launched.  Leg 2: a server whose ImmutableDB
+    holds a tampered chain (ChainDB.open replays immutable blocks without
+    crypto, so it serves it): blocks 0-1500 of the KES-flipped chain,
+    where the follower's ChainSync must raise ChainSyncClientError on the
+    window that holds block 1500; and the witness-flipped-at-300 chain,
+    whose headers are valid, where the follower's ChainDB must reject
+    block 300 and stay at 299.  Each follower runs on the card's backend
+    and again on CppBackend over the same server; the two agree on the
+    tip, the invalid set and the error.  Leg 3: a server over blocks
+    0-1999, the follower synced to its tip, then a VerifyService over
+    the follower's backend (serve.py's card legs' config, the break-even
+    table calibrated first against CppBackend) set as its
+    `verify_service`, and blocks 2000-2303 added to the server's ChainDB
+    one at a time, each after the chain's own slot gap in virtual time:
+    each header reaches the follower after MsgAwaitReply and flushes
+    alone through `validate_headers_coalesced`; the follower ends at the
+    forger's state_hash.  Legs 2 and 3 run on leg 1's follower backend,
+    its key cache warm with the chain's KES keys (a node that has synced
+    once), and every server on one backend of its own; each follower
+    starts with a cleared beta cache.  Returns the `node` line's dict;
+    `launches` is the phase's own count (the followers' only: leg 3's
+    server adds are counted apart)."""
+    from ouroboros_tpu_torch import chainsynth, serve
+    from ouroboros_tpu_torch import simharness as sim
+    from ouroboros_tpu_torch.chain import point_of
+    from ouroboros_tpu_torch.consensus.headers import (ProtocolBlock,
+                                                       ProtocolHeader)
+    from ouroboros_tpu_torch.crypto import batching
+    from ouroboros_tpu_torch.crypto import kernels as K
+    from ouroboros_tpu_torch.crypto.backend import GLOBAL_BETA_CACHE
+    from ouroboros_tpu_torch.crypto.cpp_backend import CppBackend
+    from ouroboros_tpu_torch.crypto.torch_backend import TorchBackend
+    from ouroboros_tpu_torch.eras.shelley import ShelleyTx
+    from ouroboros_tpu_torch.node import (BlockchainTime,
+                                          ChainSyncClientError, NodeKernel,
+                                          connect_nodes)
+    from ouroboros_tpu_torch.node import chain_sync as CS
+    from ouroboros_tpu_torch.observe import metrics
+    from ouroboros_tpu_torch.storage import MockFS
+    from ouroboros_tpu_torch.utils.tracer import NodeTracers, Tracer
+
+    kes_at = REPLAY_TAMPERS["kes_sig"][0]
+    wit_at = REPLAY_TAMPERS["witness_post"][0]
+    n_imm, n_sync = CHAINDB_IMMUTABLE, FOLLOW_FROM
+
+    def block_obj(obj):
+        return ProtocolBlock.decode(obj, tx_decode=ShelleyTx.decode)
+
+    def kernel(db, label, backend, tracers=None):
+        return NodeKernel(db, ext.ledger, None, BlockchainTime(NODE_SLOT_S),
+                          label=label, backend=backend,
+                          header_decode=ProtocolHeader.decode,
+                          block_decode_obj=block_obj,
+                          tx_decode=ShelleyTx.decode, tracers=tracers)
+
+    def open_db(blocks, n_immutable, backend):
+        fs = MockFS()
+        chainsynth.write_chaindb(fs, blocks, n_immutable)
+        return chainsynth.open_chaindb(fs, ext, backend)
+
+    def pt(p):
+        return (p.slot, p.hash.hex())
+
+    # the header flushes and the follower's adds, timed where they run
+    flushes: list = []                  # (headers, seconds) a direct flush
+    coalesced: list = []                # headers a flush through the service
+    real_batched = CS.validate_headers_batched
+    real_coalesced = batching.validate_headers_coalesced
+
+    def timed_batched(protocol, headers, *a, **kw):
+        t = time.perf_counter()
+        try:
+            return real_batched(protocol, headers, *a, **kw)
+        finally:
+            flushes.append((len(headers), time.perf_counter() - t))
+
+    async def counted_coalesced(protocol, headers, *a, **kw):
+        coalesced.append(len(headers))
+        return await real_coalesced(protocol, headers, *a, **kw)
+
+    flush_hist = metrics.registry().get("chainsync.flush_headers")
+
+    def run_pair(sdb, fdb, fbackend, done, script=None):
+        """One sim.run: the server's and the follower's kernels, started
+        once the clock stands past the chain's tip and wired; `script`
+        (if any) runs first, then the run polls `done(server, follower)`
+        every NODE_POLL_S virtual seconds.  Returns the run's record:
+        wall and virtual seconds, the follower's add seconds and
+        ChainSync window, every thread failure, the flush histogram's
+        delta."""
+        rec = {"add_s": [], "validated": []}
+        del flushes[:], coalesced[:]
+        h0 = flush_hist.snapshot_value()
+
+        async def main():
+            await sim.sleep((chain[-1].slot + 1) * NODE_SLOT_S - sim.now())
+            server = kernel(sdb, "server", sdb.backend)
+            follower = kernel(fdb, "follower", fbackend, NodeTracers(
+                chain_sync=Tracer(rec["validated"].append)))
+            real_add = fdb.add_block
+
+            def timed_add(block):
+                t = time.perf_counter()
+                try:
+                    return real_add(block)
+                finally:
+                    rec["add_s"].append(time.perf_counter() - t)
+            fdb.add_block = timed_add
+            server.start()
+            follower.start()
+            rec["window"] = follower.chain_sync_window
+            rec["t0"], v0 = time.perf_counter(), sim.now()
+            connect_nodes(follower, server, delay=NODE_DELAY)
+            try:
+                if script is not None:
+                    await script(server, follower, rec)
+                while not done(server, follower):
+                    if sim.now() - v0 > NODE_VIRTUAL_LIMIT_S:
+                        raise AssertionError(
+                            f"node: follower at {pt(fdb.tip_point())} after "
+                            f"{NODE_VIRTUAL_LIMIT_S} virtual s; failures "
+                            f"{_thread_failures(server, follower)}")
+                    await sim.sleep(NODE_POLL_S)
+                rec.update(wall_s=time.perf_counter() - rec["t0"],
+                           virtual_s=sim.now() - v0,
+                           failures=_thread_failures(server, follower))
+            finally:
+                del fdb.add_block
+                server.stop()
+                follower.stop()
+
+        CS.validate_headers_batched = timed_batched
+        batching.validate_headers_coalesced = counted_coalesced
+        try:
+            sim.run(main(), seed=SEED)
+        finally:
+            CS.validate_headers_batched = real_batched
+            batching.validate_headers_coalesced = real_coalesced
+        h1 = flush_hist.snapshot_value()
+        rec["flush_headers_hist"] = {
+            "count": h1["count"] - h0["count"],
+            "buckets": {e: c - h0["buckets"].get(e, 0)
+                        for e, c in h1["buckets"].items()
+                        if c - h0["buckets"].get(e, 0)}}
+        rec["flushes"] = list(flushes)
+        rec["coalesced"] = list(coalesced)
+        return rec
+
+    def follower_db(backend):
+        GLOBAL_BETA_CACHE.clear()
+        return open_db([], 0, backend)
+
+    def synced(server, follower):
+        return follower.chain_db.tip_point() == server.chain_db.tip_point()
+
+    def expect_failures(rec, allowed):
+        """Every thread failure must be one `allowed` names: (node,
+        thread label, exception type, a fragment of its message)."""
+        bad = [f for f in rec["failures"]
+               if not any(f[0] == n and f[1] == lab and isinstance(f[2], ty)
+                          and frag in str(f[2])
+                          for n, lab, ty, frag in allowed)]
+        if bad:
+            raise AssertionError(f"node: unexpected thread failures {bad}")
+
+    # the server's own ChainSync client, wired by connect_nodes in the
+    # other direction, finds no intersection with a follower at genesis
+    # and ends: the one failure every run has
+    no_isect = ("server", "server->follower.connect-i",
+                ChainSyncClientError, "no intersection")
+    ms = lambda xs: {"p50": _pct(xs, 0.50) * 1e3,
+                     "p95": _pct(xs, 0.95) * 1e3,
+                     "max": max(xs) * 1e3} if xs else None
+    t_phase = time.perf_counter()
+    totals = {k: 0 for k in K.LAUNCHES}
+
+    def count(launches):
+        for k, v in launches.items():
+            totals[k] += v
+
+    # -- leg 1: sync from genesis
+    server_backend = TorchBackend()
+    t = time.perf_counter()
+    sdb = open_db(chain, n_imm, server_backend)
+    open_s = time.perf_counter() - t
+    if sdb.tip_point() != point_of(chain[-1]):
+        raise AssertionError(f"node: server opened at {pt(sdb.tip_point())}")
+    fbackend = TorchBackend()
+    fdb = follower_db(fbackend)
+    K.reset_launches()
+    rec = run_pair(sdb, fdb, fbackend, synced)
+    launches = dict(K.LAUNCHES)
+    count(launches)
+    expect_failures(rec, [no_isect])
+    missing = [k for k in MAIN_PATH if launches[k] == 0]
+    if fdb.tip_point() != point_of(chain[-1]) or fdb.invalid or \
+            fdb.current_ledger.ledger.state_hash() != want_hash or missing:
+        raise AssertionError(
+            f"node leg 1: follower at {pt(fdb.tip_point())}, "
+            f"{len(fdb.invalid)} invalid, kernels not launched {missing}, "
+            f"or a state_hash not the forger's")
+    flush_total = sum(s for _n, s in rec["flushes"])
+    add_total = sum(rec["add_s"])
+    sync = {
+        "blocks": len(chain), "server_immutable": n_imm,
+        "server_open_s": open_s, "seconds": rec["wall_s"],
+        "virtual_s": rec["virtual_s"],
+        "blocks_per_s": len(chain) / rec["wall_s"],
+        "flushes": len(rec["flushes"]),
+        "flush_sizes": [n for n, _s in rec["flushes"]],
+        "flush_headers_hist": rec["flush_headers_hist"],
+        "flush_ms": ms([s for _n, s in rec["flushes"]]),
+        "adds": len(rec["add_s"]), "add_ms": ms(rec["add_s"]),
+        "split_s": {"header_flushes": flush_total, "chaindb_adds": add_total,
+                    "rest": rec["wall_s"] - flush_total - add_total},
+        "launches": launches}
+    log(f"node leg 1: {len(chain)} blocks synced from genesis in "
+        f"{rec['wall_s']:.3f} s ({sync['blocks_per_s']:.1f} blocks/s; "
+        f"{rec['virtual_s']:.2f} virtual s), state_hash == forger's; "
+        f"{sync['flushes']} ChainSync flushes (sizes "
+        f"{sorted(set(sync['flush_sizes']))}), ms a flush p50 "
+        f"{sync['flush_ms']['p50']:.3f} p95 {sync['flush_ms']['p95']:.3f} "
+        f"max {sync['flush_ms']['max']:.3f}; wall split: header flushes "
+        f"{flush_total:.3f} s, {sync['adds']} ChainDB adds {add_total:.3f} "
+        f"s, the rest {sync['split_s']['rest']:.3f} s; server opened in "
+        f"{open_s:.3f} s; launches {launches}")
+
+    # -- leg 2: a bad peer, on the card's backend and on CppBackend
+    def bad_peer(name, blocks, done, allowed):
+        t = time.perf_counter()
+        sdb = open_db(blocks, len(blocks), server_backend)
+        open_s = time.perf_counter() - t
+        if sdb.tip_point() != point_of(blocks[-1]):
+            raise AssertionError(f"node leg 2 {name}: server opened at "
+                                 f"{pt(sdb.tip_point())}")
+        got = {}
+        for which, be in (("card", fbackend), ("cpp", CppBackend())):
+            fdb = follower_db(be)
+            K.reset_launches()
+            rec = run_pair(sdb, fdb, be, done)
+            launches = dict(K.LAUNCHES)
+            if which == "card":
+                count(launches)
+            expect_failures(rec, allowed)
+            kills = [f[2] for f in rec["failures"]
+                     if f[0] == "follower"]
+            got[which] = {
+                "tip": pt(fdb.tip_point()),
+                "tip_block": fdb.current_chain.head_block_no,
+                "invalid": sorted(h.hex() for h in fdb.invalid),
+                "error": [f"{type(e).__name__}: {e}" for e in kills],
+                "validated_to_slot": rec["validated"][-1].slot
+                if rec["validated"] else None,
+                "seconds": rec["wall_s"], "virtual_s": rec["virtual_s"],
+                "flushes": len(rec["flushes"]),
+                "adds": len(rec["add_s"]), "launches": launches,
+                "state_hash": fdb.current_ledger.ledger.state_hash().hex()}
+        same = all(got["card"][k] == got["cpp"][k]
+                   for k in ("tip", "invalid", "error", "state_hash"))
+        if not same:
+            raise AssertionError(f"node leg 2 {name}: the card's follower "
+                                 f"{got['card']} != CppBackend's "
+                                 f"{got['cpp']}")
+        return {"server_blocks": len(blocks), "server_open_s": open_s,
+                **got}
+
+    kes_chain = chains["kes_sig"][:kes_at + 1]
+    leg2 = {}
+    leg2["kes_sig"] = bad_peer(
+        "kes_sig", kes_chain,
+        lambda s, f: any(t.label == "follower->server.connect-i" and t.done
+                         for t in f._threads) and not f.chain_db._add_queue,
+        [no_isect, ("follower", "follower->server.connect-i",
+                    ChainSyncClientError, "invalid header from peer")])
+    r = leg2["kes_sig"]["card"]
+    if len(r["error"]) != 1 or "invalid header" not in r["error"][0] or \
+            r["tip_block"] > kes_at - 1 or \
+            r["validated_to_slot"] != chain[kes_at - 1].slot:
+        raise AssertionError(f"node leg 2 kes_sig: {r}")
+    wit_chain = chains["witness_post"]
+    leg2["witness_post"] = bad_peer(
+        "witness_post", wit_chain,
+        lambda s, f: not f.chain_db._add_queue and all(
+            f.have_block(b.hash) for b in wit_chain[-1:]),
+        [no_isect])
+    r = leg2["witness_post"]["card"]
+    if r["tip_block"] != wit_at - 1 or r["error"] or \
+            wit_chain[wit_at].hash.hex() not in r["invalid"] or \
+            r["tip"] != pt(point_of(wit_chain[wit_at - 1])):
+        raise AssertionError(f"node leg 2 witness_post: {r}")
+    for name, r in leg2.items():
+        log(f"node leg 2 {name}: server of {r['server_blocks']} immutable "
+            f"blocks opened in {r['server_open_s']:.3f} s; follower tip "
+            f"block {r['card']['tip_block']}, {len(r['card']['invalid'])} "
+            f"invalid, errors {r['card']['error']}; == CppBackend's; "
+            f"{r['card']['seconds']:.3f} s, CppBackend "
+            f"{r['cpp']['seconds']:.3f} s; launches {r['card']['launches']}")
+
+    # -- leg 3: caught up, the coalesced path
+    sdb = open_db(chain[:n_sync], n_imm, server_backend)
+    cpu = CppBackend()
+    t = time.perf_counter()
+    break_even = batching.calibrate_break_even(
+        fbackend, cpu, fbackend.device_kind, bucket=serve.CALIBRATION_BUCKET,
+        persist=False)
+    cal_s = time.perf_counter() - t
+    fdb = follower_db(fbackend)
+    adopted: list = []          # (wall, the follower's tip block) a change
+    fdb.on_change(lambda: adopted.append(
+        (time.perf_counter(), fdb.current_chain.head_block_no)))
+    leg3 = {"server_blocks": n_sync, "server_adds": len(chain) - n_sync,
+            "calibration_s": cal_s, "break_even": break_even.snapshot()}
+    server_launches = {k: 0 for k in K.LAUNCHES}
+
+    async def follow_tip(server, follower, rec):
+        while not synced(server, follower):
+            await sim.sleep(NODE_POLL_S)
+        rec["sync_s"] = time.perf_counter() - rec["t0"]
+        rec["sync_launches"] = dict(K.LAUNCHES)
+        rec["sync_flushes"] = len(flushes)
+        rec["sync_adds"] = len(rec["add_s"])
+        K.reset_launches()
+        svc = serve._service(fbackend, cpu, break_even,
+                             serve.SATURATED_CONFIG)
+        await svc.start()
+        follower.verify_service = svc
+        rec["added_at"] = {}
+        prev = chain[n_sync - 1]
+        for b in chain[n_sync:]:
+            await sim.sleep((b.slot - prev.slot) * NODE_SLOT_S)
+            prev = b
+            before = dict(K.LAUNCHES)
+            rec["added_at"][b.block_no] = time.perf_counter()
+            r = server.chain_db.add_block(b)
+            for k, v in K.LAUNCHES.items():
+                server_launches[k] += v - before[k]
+            if r.kind != "extended":
+                raise AssertionError(f"node leg 3: the server's add of block "
+                                     f"{b.block_no} {r.kind}")
+        while not synced(server, follower):
+            await sim.sleep(NODE_POLL_S)
+        await svc.stop()
+        rec["service"] = dict(svc.stats)
+        rec["batch_sizes"] = dict(svc.batch_sizes)
+
+    K.reset_launches()
+    rec = run_pair(sdb, fdb, fbackend, synced, follow_tip)
+    follow_launches = {k: v - server_launches[k]
+                       for k, v in K.LAUNCHES.items()}
+    count(rec["sync_launches"])
+    count(follow_launches)
+    expect_failures(rec, [no_isect])
+    svc = rec["service"]
+    n_add = len(chain) - n_sync
+    if fdb.tip_point() != point_of(chain[-1]) or fdb.invalid or \
+            fdb.current_ledger.ledger.state_hash() != want_hash or \
+            sum(rec["coalesced"]) < n_add or svc["flushes"] == 0:
+        raise AssertionError(
+            f"node leg 3: follower at {pt(fdb.tip_point())}, "
+            f"{len(fdb.invalid)} invalid, coalesced flushes "
+            f"{rec['coalesced']}, service {svc}, or a state_hash not the "
+            f"forger's")
+    # an add's latency: to the first chain change that put the
+    # follower's tip at or past the added block
+    lat = [next(w for w, bn in adopted if bn >= block_no) - t
+           for block_no, t in rec["added_at"].items()]
+    leg3.update(
+        sync_s=rec["sync_s"], sync_flushes=rec["sync_flushes"],
+        sync_launches=rec["sync_launches"],
+        seconds=rec["wall_s"] - rec["sync_s"],
+        adoption_ms=ms(lat), coalesced_flushes=len(rec["coalesced"]),
+        coalesced_sizes=sorted(set(rec["coalesced"])),
+        direct_flushes_caught_up=len(rec["flushes"]) - rec["sync_flushes"],
+        service=svc, batch_sizes={str(k): v for k, v
+                                  in sorted(rec["batch_sizes"].items())},
+        follower_adds=len(rec["add_s"]) - rec["sync_adds"],
+        follower_add_ms=ms(rec["add_s"][rec["sync_adds"]:]),
+        launches=follow_launches,
+        server_launches=server_launches)
+    log(f"node leg 3: synced to block {n_sync - 1} in {rec['sync_s']:.3f} s "
+        f"({rec['sync_flushes']} flushes), then {n_add} blocks added to the "
+        f"server one at a time: adoption ms p50 "
+        f"{leg3['adoption_ms']['p50']:.3f}, p95 "
+        f"{leg3['adoption_ms']['p95']:.3f}, max "
+        f"{leg3['adoption_ms']['max']:.3f}; {len(rec['coalesced'])} flushes "
+        f"through validate_headers_coalesced (sizes "
+        f"{leg3['coalesced_sizes']}); the service's {svc['flushes']} "
+        f"flushes: {svc['device_batches']} device batches, "
+        f"{svc['fallback_batches']} CPU fallback batches; state_hash == "
+        f"forger's; launches {follow_launches} (the server's adds "
+        f"{server_launches})")
+    phase_s = time.perf_counter() - t_phase
+    log(f"node phase: {phase_s:.3f} s")
+    return {"seconds": phase_s, "delay_s": NODE_DELAY,
+            "slot_length_s": NODE_SLOT_S, "window": rec["window"],
+            "clock": "slot after the chain's tip at start",
+            "codecs": "ProtocolHeader.decode, ProtocolBlock.decode with "
+                      "ShelleyTx.decode",
+            "sync": sync, "bad_peer": leg2, "caught_up": leg3,
+            "launches": totals, "card": card}
+
+
 def replay_profiled(ext, chain) -> dict:
     """One more replay of the valid chain under torch.profiler, apart from
     the timed runs: the card's busy seconds and the kernels that took
@@ -1750,7 +2223,10 @@ def main() -> int:
     # -- 9. the chain database ----------------------------------------------
     cd = chaindb_phase(card, *replayed, tampered_chains)
 
-    # -- 10. the standalone batch-verify path -------------------------------
+    # -- 10. the node-to-node sync path -------------------------------------
+    nd = node_phase(card, *replayed, tampered_chains)
+
+    # -- 11. the standalone batch-verify path -------------------------------
     K.reset_launches()
     t = time.perf_counter()
     probe_rows = perf_probe.main(PROBE_ARGS)
@@ -1762,7 +2238,7 @@ def main() -> int:
         raise AssertionError(f"kernels not launched on the probe's path: "
                              f"{missing}")
 
-    # -- 11. the field microbenchmark path ----------------------------------
+    # -- 12. the field microbenchmark path ----------------------------------
     # every (lanes, op, k) its runs launch, and the first n - 3 lanes of
     # each lane count, exactly against the plain versions; a sample of the
     # JAX shape's lanes against Python integers
@@ -1864,13 +2340,14 @@ def main() -> int:
                              f"{not_dev}")
     rp["profiled"] = replay_profiled(*replayed[:2])
 
-    # -- 12. report -----------------------------------------------------------
+    # -- 13. report -----------------------------------------------------------
     serve_launches = sv["card"]["saturated"]["launches"]
     for entry in report:
         name = entry["name"]
         entry["max_abs_err"] = max_err[name]
         entry["serve_launches"] = serve_launches[name]
         entry["chaindb_launches"] = cd["launches"][name]
+        entry["node_launches"] = nd["launches"][name]
         entry["sharded_launches"] = (sh["batch_verify"]["launches"][name]
                                      if name == "ed25519_verify"
                                      else sh["launches"][0][name])
@@ -1903,6 +2380,7 @@ def main() -> int:
     print(json.dumps({"serve": sv}))
     print(json.dumps({"sharded": sh}))
     print(json.dumps({"chaindb": cd}))
+    print(json.dumps({"node": nd}))
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {

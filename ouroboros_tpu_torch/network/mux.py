@@ -1,0 +1,394 @@
+"""Multiplexer — one bearer, N mini-protocol byte streams.
+
+Reference: network-mux/src/Network/Mux.hs (newMux/runMux/miniProtocolJob),
+Egress.hs:77-105 (single writer, fair SDU interleaving), Ingress.hs:100-122
+(per-protocol ingress queues with byte limits), Codec.hs:16-40 (8-byte SDU
+header: 32-bit timestamp | 1-bit mode + 15-bit protocol num | 16-bit length,
+big-endian), Bearer/Queues.hs:25 (pure queue bearer for tests).
+
+Wire-compatible SDU framing; the runtime is simharness threads + STM, so mux
+behaviour (fairness, backpressure, overflow kills) is deterministic in tests.
+
+Ported from `ouroboros_tpu/network/mux.py` (the port imports nothing of the
+JAX package). Copied whole.
+"""
+from __future__ import annotations
+
+import struct
+from dataclasses import dataclass
+from typing import Optional
+
+from .. import simharness as sim
+from ..observe import metrics as _metrics
+from ..observe import netmetrics as _net
+from ..simharness import TBQueue, TVar, retry
+
+_TEARDOWNS = _metrics.counter("mux.teardowns")
+
+INITIATOR, RESPONDER = 0, 1
+HEADER = struct.Struct(">IHH")   # timestamp, mode|num, length
+
+
+class MuxError(Exception):
+    pass
+
+
+@dataclass(frozen=True)
+class SDU:
+    timestamp: int      # lower 32 bits of sender's µs clock (RemoteClockModel)
+    mode: int           # INITIATOR | RESPONDER (direction bit)
+    num: int            # protocol number (15 bits)
+    payload: bytes
+
+    def encode(self) -> bytes:
+        if self.num >= 1 << 15:
+            raise MuxError("protocol number out of range")
+        if len(self.payload) >= 1 << 16:
+            raise MuxError("SDU payload too large")
+        return HEADER.pack(self.timestamp & 0xFFFFFFFF,
+                           (self.mode << 15) | self.num,
+                           len(self.payload)) + self.payload
+
+    @classmethod
+    def decode_header(cls, raw: bytes) -> tuple[int, int, int, int]:
+        ts, mn, ln = HEADER.unpack(raw[:8])
+        return ts, mn >> 15, mn & 0x7FFF, ln
+
+
+class QueueBearer:
+    """In-memory bearer: SDU-preserving queue pair (Bearer/Queues.hs:25)."""
+
+    def __init__(self, outq: TBQueue, inq: TBQueue, sdu_size: int = 12288,
+                 delay: float = 0.0):
+        self.sdu_size = sdu_size
+        self._out = outq
+        self._in = inq
+        self._delay = delay
+
+    async def write(self, sdu: SDU) -> None:
+        raw = sdu.encode()
+        if self._delay:
+            await sim.sleep(self._delay)
+        await sim.atomically(lambda tx: self._out.put(tx, raw))
+
+    async def read(self) -> SDU:
+        raw = await sim.atomically(self._in.get)
+        ts, mode, num, ln = SDU.decode_header(raw)
+        payload = raw[8:]
+        if len(payload) != ln:
+            raise MuxError("SDU length mismatch")
+        return SDU(ts, mode, num, payload)
+
+
+def bearer_pair(sdu_size: int = 12288, delay: float = 0.0, capacity: int = 256):
+    a2b = TBQueue(capacity, label="bearer.a2b")
+    b2a = TBQueue(capacity, label="bearer.b2a")
+    return (QueueBearer(a2b, b2a, sdu_size, delay),
+            QueueBearer(b2a, a2b, sdu_size, delay))
+
+
+class MuxChannel:
+    """Byte-stream channel for one (protocol num, direction)."""
+
+    def __init__(self, mux: "Mux", num: int, mode: int):
+        self._mux = mux
+        self._num = num
+        self._mode = mode
+        # egress staging (drained by the muxer thread, Egress.hs Wanton)
+        self.egress = TVar(b"", label=f"mux.egress.{num}.{mode}")
+        # ingress chunks + byte accounting (Ingress.hs)
+        self.ingress = TVar(b"", label=f"mux.ingress.{num}.{mode}")
+        self.ingress_limit = 0x3FFFF
+
+    EGRESS_CAP = 0xFFFF * 4
+
+    async def send(self, data: bytes) -> None:
+        """Queue bytes for egress; blocks while previous data undrained
+        (the Wanton backpressure of Egress.hs:77).  Payloads larger than
+        the egress cap are enqueued in chunks as the muxer drains.
+        Raises MuxError once the mux is closed (teardown poisons the
+        channels — a blocked protocol must die, not hang)."""
+        off = 0
+        while off < len(data):
+            def tx_fn(tx, off=off):
+                if tx.read(self._mux._closed):
+                    return None
+                cur = tx.read(self.egress)
+                room = self.EGRESS_CAP - len(cur)
+                if room <= 0:
+                    retry()
+                chunk = data[off:off + room]
+                tx.write(self.egress, cur + chunk)
+                return len(chunk)
+            sent = await sim.atomically(tx_fn)
+            if sent is None:
+                raise MuxError(f"{self._mux.label}: mux closed")
+            off += sent
+
+    async def recv(self) -> bytes:
+        """Receive whatever bytes have arrived (at least one); raises
+        MuxError when the mux closed with nothing pending."""
+        def tx_fn(tx):
+            buf = tx.read(self.ingress)
+            if buf:
+                tx.write(self.ingress, b"")
+                return buf
+            if tx.read(self._mux._closed):
+                return None
+            retry()
+        out = await sim.atomically(tx_fn)
+        if out is None:
+            raise MuxError(f"{self._mux.label}: mux closed")
+        return out
+
+    async def wait_ready(self, timeout: float) -> bool:
+        """True when ingress bytes are pending OR the mux died, False
+        after `timeout` — non-destructive (see Channel.wait_ready).
+        Reporting a dead mux as ready matters for the watchdog path: the
+        caller's follow-up recv() raises MuxError NOW, instead of a
+        transport death masquerading as peer silence for the remainder of
+        the state's time limit."""
+        return await sim.wait_pred(
+            lambda tx: bool(tx.read(self.ingress))
+            or tx.read(self._mux._closed), timeout)
+
+    async def try_recv(self) -> bytes:
+        """Drain pending ingress bytes without blocking (b"" when none)."""
+        def tx_fn(tx):
+            buf = tx.read(self.ingress)
+            if buf:
+                tx.write(self.ingress, b"")
+            return buf
+        return await sim.atomically(tx_fn)
+
+
+class Mux:
+    """The mux proper: fair egress servicing + demux (Mux.hs:176-282)."""
+
+    def __init__(self, bearer, label: str = "mux", owd_observer=None):
+        self.bearer = bearer
+        self.label = label
+        # owd_observer(owd_seconds, sdu_bytes): fed one sample per received
+        # SDU from the header timestamp (DeltaQ/TraceStats.hs) — passive
+        # latency estimation riding the normal traffic
+        self.owd_observer = owd_observer
+        self._channels: dict[tuple[int, int], MuxChannel] = {}
+        self._jobs: list = []
+        self._demux_job = None
+        # set by stop() (and on demux/egress death): poisons every
+        # channel so blocked mini-protocols raise MuxError instead of
+        # hanging — the reference's mux teardown kills its protocol
+        # threads (Mux.hs JobPool cancellation)
+        self._closed = TVar(False, label=f"{label}.closed")
+        # bumped on channel registration so the egress loop's STM retry
+        # re-reads the channel set (a snapshot would miss late channels)
+        self._chan_version = TVar(0, label=f"{label}.chanver")
+        # per-peer traffic accounting, built lazily on the
+        # first ENABLED write: with observation off the per-SDU cost is
+        # exactly one flag read — no label formatting, no instrument
+        # writes (the bench --smoke disabled-observation probe)
+        self._io: Optional[_net.MuxIO] = None
+
+    def _io_acct(self) -> _net.MuxIO:
+        io = self._io
+        if io is None:
+            io = self._io = _net.MuxIO(self.label)
+        return io
+
+    def channel(self, num: int, mode: int) -> MuxChannel:
+        key = (num, mode)
+        if key not in self._channels:
+            self._channels[key] = MuxChannel(self, num, mode)
+            if self._jobs:   # mux running: wake the egress loop
+                self._chan_version.set_notify(self._chan_version.value + 1)
+            else:
+                self._chan_version._value += 1
+        return self._channels[key]
+
+    def start(self) -> None:
+        self._jobs.append(sim.spawn(self._egress_loop(),
+                                    label=f"{self.label}.muxer"))
+        # named, not positional: wait_closed() must track THIS job even if
+        # start() ever grows or reorders spawns
+        self._demux_job = sim.spawn(self._demux_loop(),
+                                    label=f"{self.label}.demuxer")
+        self._jobs.append(self._demux_job)
+
+    def stop(self) -> None:
+        self._mark_closed()
+        for j in self._jobs:
+            j.cancel()
+
+    def _mark_closed(self) -> None:
+        if not self._closed.value:     # count each mux teardown once
+            _TEARDOWNS.inc()
+        try:
+            self._closed.set_notify(True)
+        except Exception:
+            self._closed._value = True
+
+    async def wait_closed(self) -> None:
+        """Block until the demuxer job ends — i.e. the bearer EOFed or
+        errored (the connection-down signal servers hold on).  Returns
+        immediately if the mux was never started."""
+        if self._demux_job is None:
+            return
+        try:
+            await self._demux_job.wait()
+        except BaseException:
+            pass
+
+    async def _egress_loop(self):
+        """Round-robin over channels; one SDU per channel per cycle
+        (Egress.hs:77-105 fairness).  A bearer-write death (EOF or an
+        injected LinkDown) poisons the channels exactly like a demux-side
+        death — otherwise senders block on full egress TVars and a
+        transport death masquerades as peer silence until a watchdog
+        notices."""
+        try:
+            await self._egress_body()
+        except sim.AsyncCancelled:
+            self._mark_closed()
+            raise
+        except BaseException as exc:
+            sim.trace_event((self.label, "bearer-died", repr(exc)),
+                            label="mux")
+            self._mark_closed()
+            raise
+
+    async def _egress_body(self):
+        while True:
+            # wait until any channel has egress data; reading _chan_version
+            # inside the transaction adds it to the retry read set, so late
+            # channel registrations wake this loop
+            def wait_any(tx):
+                tx.read(self._chan_version)
+                for ch in self._channels.values():
+                    if tx.read(ch.egress):
+                        return True
+                retry()
+            await sim.atomically(wait_any)
+            for ch in list(self._channels.values()):
+                def take(tx, ch=ch):
+                    buf = tx.read(ch.egress)
+                    if not buf:
+                        return None
+                    cut = self.bearer.sdu_size
+                    tx.write(ch.egress, buf[cut:])
+                    return buf[:cut]
+                chunk = await sim.atomically(take)
+                if chunk:
+                    ts = int(sim.now() * 1e6) & 0xFFFFFFFF
+                    await self.bearer.write(
+                        SDU(ts, ch._mode, ch._num, chunk))
+                    if _metrics.REGISTRY.enabled:
+                        self._io_acct().egress(ch._num, len(chunk))
+
+    async def _demux_loop(self):
+        """Read SDUs, route to ingress queues; overflow kills the mux
+        (Ingress.hs:100-122 MuxIngressQueueOverRun semantics).  Any exit
+        (bearer EOF/error/overflow) poisons the channels so protocol
+        threads blocked in recv/send fail rather than hang."""
+        try:
+            await self._demux_body()
+        except sim.AsyncCancelled:
+            self._mark_closed()
+            raise
+        except BaseException as exc:
+            # bearer death (incl. injected LinkDown) is a recovery-relevant
+            # event: make the teardown reason visible in the sim trace so a
+            # chaos run is debuggable from the trace alone
+            sim.trace_event((self.label, "bearer-died", repr(exc)),
+                            label="mux")
+            self._mark_closed()
+            raise
+
+    async def _demux_body(self):
+        while True:
+            sdu = await self.bearer.read()
+            if _metrics.REGISTRY.enabled:
+                self._io_acct().ingress(sdu.num, len(sdu.payload))
+            if self.owd_observer is not None:
+                # 32-bit µs wraparound-safe one-way delay from the sender's
+                # RemoteClockModel timestamp (TraceStats.hs)
+                now_us = int(sim.now() * 1e6) & 0xFFFFFFFF
+                delta = (now_us - sdu.timestamp) & 0xFFFFFFFF
+                if delta < 1 << 31:          # sane (not clock-behind)
+                    self.owd_observer(delta / 1e6, len(sdu.payload) + 8)
+            # the sender's direction bit is flipped on receive: the remote
+            # initiator's data feeds our responder-side channel (Ingress.hs)
+            key = (sdu.num, 1 - sdu.mode)
+            ch = self._channels.get(key)
+            if ch is None:
+                # the reference's newMux registers every ingress queue of
+                # the MiniProtocolBundle before data can flow (responders
+                # start on demand — Mux.hs:264 StartOnDemand); our lazy
+                # registration gets the same effect by creating the queue
+                # here, buffering until the protocol attaches
+                ch = self.channel(sdu.num, 1 - sdu.mode)
+
+            def put(tx, ch=ch, data=sdu.payload):
+                buf = tx.read(ch.ingress)
+                if len(buf) + len(data) > ch.ingress_limit:
+                    raise MuxError(
+                        f"{self.label}: ingress overflow on {ch._num}")
+                tx.write(ch.ingress, buf + data)
+            await sim.atomically(put)
+
+
+class CodecChannel:
+    """Message-level channel over a byte stream + Codec: CBOR-prefix framing.
+
+    The Driver/Simple.hs byte-level driver analog: accumulates chunks and
+    decodes one CBOR item per message (mux SDU boundaries are invisible to
+    the protocol layer, as in the reference).
+    """
+
+    def __init__(self, byte_channel, codec):
+        self._ch = byte_channel
+        self._codec = codec
+        self._buf = b""
+
+    async def send(self, msg) -> None:
+        await self._ch.send(self._codec.encode(msg))
+
+    async def recv(self):
+        from ..utils import cbor
+        while True:
+            if self._buf:
+                try:
+                    _, used = cbor.loads_prefix(self._buf)
+                except cbor.CBORTruncated:
+                    used = 0   # partial message: wait for more bytes
+                if used:
+                    raw, self._buf = self._buf[:used], self._buf[used:]
+                    return self._codec.decode(raw)
+            self._buf += await self._ch.recv()
+
+    async def wait_ready(self, timeout: float) -> bool:
+        """True when a COMPLETE message is decodable within `timeout`,
+        False otherwise — message-aware, so a peer dribbling a partial
+        frame cannot make the caller's follow-up recv() block unboundedly.
+        Partial bytes are pulled into the channel's own buffer (safe: the
+        buffer survives and the message layer never sees a torn frame)."""
+        from ..utils import cbor
+        deadline = sim.now() + timeout
+        while True:
+            if self._buf:
+                try:
+                    _, used = cbor.loads_prefix(self._buf)
+                    if used:
+                        return True
+                except cbor.CBORTruncated:
+                    pass
+            remaining = deadline - sim.now()
+            if remaining <= 0 or not await self._ch.wait_ready(remaining):
+                return False
+            got = await self._ch.try_recv()
+            if not got:
+                # ready with nothing pending = the byte channel closed
+                # underneath: report ready so the caller's recv() raises
+                # the MuxError now (also avoids a livelock re-polling a
+                # permanently-ready dead channel)
+                return True
+            self._buf += got

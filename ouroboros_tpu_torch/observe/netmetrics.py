@@ -1,0 +1,284 @@
+"""Bounded-cardinality per-peer network instruments.
+
+The diffusion stack's natural metric dimensions — peer addresses,
+protocol numbers, connection labels — are RUNTIME values: a registry
+series per raw peer string is an unbounded-cardinality bomb on an
+O(100)-node chaos net with churn (every redial mints a new connection
+tag).  This module is the one sanctioned way a dynamic value becomes
+part of a metric name:
+
+- :class:`BoundedLabels` — an LRU-tracked label domain with a hard cap:
+  the first `cap` distinct values get their own (sanitised) label, every
+  later NEW value collapses into the shared ``overflow`` bucket, so the
+  registry's labeled-series count is bounded by construction.  Values
+  already admitted keep resolving to their own label forever (replays of
+  a seeded run resolve identically).
+- :func:`peer_label` — the process-wide peer domain (`addr -> label`).
+- :func:`labeled_counter` / :func:`labeled_gauge` — registry instruments
+  named ``base{k="v",...}`` with every label VALUE routed through a
+  per-(base, key) bounded domain.  `export.prometheus_text` renders
+  these as real Prometheus labeled series.
+
+ouro-lint rule OBS003 enforces the seam: a metric name built by
+f-string/concat from runtime values anywhere else in the package is a
+finding — route it through here instead.
+
+Cost discipline (the bench --smoke disabled-observation probe): every
+label resolution bumps :data:`LABEL_FORMATS` (an ``always`` counter, so
+it counts even while observation is off) — call sites like the mux hot
+path must therefore guard on ``registry.enabled`` BEFORE touching this
+module, and the probe asserts the counter stayed flat with observation
+disabled.  Labeled series are ``stable=False``: peer sets vary run to
+run, so they live in the live exposition, never the deterministic
+snapshot bench embeds.
+
+:class:`MuxIO` is the mux's per-connection traffic accounting: registry
+series per (peer, protocol-number) plus plain-int local totals that
+:class:`observe.propagation.FleetTelemetry` folds into the fleet report
+(local ints, not registry reads, so two seeded replays report
+byte-identical per-peer accounting regardless of what else the process
+observed).
+
+Ported from `ouroboros_tpu/observe/netmetrics.py` (the port imports nothing
+of the JAX package). Copied whole: the mux, the DeltaQ tracker and the
+watchdogs publish through it.
+"""
+from __future__ import annotations
+
+from collections import OrderedDict, deque
+from typing import Dict, Optional, Tuple
+
+from . import metrics as _metrics
+
+#: label a NEW value maps to once its domain is full
+OVERFLOW_LABEL = "overflow"
+#: default domain cap — generous for an O(100)-node net, small enough
+#: that a runaway label source cannot swamp a scrape
+DEFAULT_LABEL_CAP = 256
+
+#: every label resolution (sanitise + LRU probe) counts here, whether or
+#: not observation is enabled (`always`) — the disabled-observation probe
+#: asserts ZERO resolutions happen on the mux hot path with metrics off
+LABEL_FORMATS = _metrics.counter("net.labels.formatted", always=True,
+                                 stable=False)
+#: new values refused by a full domain (collapsed into `overflow`)
+LABEL_OVERFLOWS = _metrics.counter("net.labels.overflowed", always=True,
+                                   stable=False)
+
+
+def _sanitize(value: str) -> str:
+    """A label value safe inside the exposition's quoted string and the
+    whitespace-split parser: quotes/backslashes/braces/whitespace out."""
+    out = []
+    for ch in value:
+        out.append("_" if ch in '"\\{}' or ch.isspace() else ch)
+    return "".join(out)
+
+
+class BoundedLabels:
+    """One label domain: at most `cap` distinct values ever get their
+    own label; later new values share the overflow bucket.  Lookup keeps
+    LRU order purely as recency bookkeeping — entries are never evicted,
+    because an evicted-then-readmitted value would mint a second
+    registry series and the cardinality bound would be a fiction."""
+
+    def __init__(self, cap: int = DEFAULT_LABEL_CAP,
+                 overflow: str = OVERFLOW_LABEL):
+        self.cap = cap
+        self.overflow = overflow
+        self.overflows = 0
+        self._lru: "OrderedDict[object, str]" = OrderedDict()
+
+    def get(self, value) -> str:
+        LABEL_FORMATS.inc()
+        lru = self._lru
+        got = lru.get(value)
+        if got is not None:
+            lru.move_to_end(value)
+            return got
+        if len(lru) >= self.cap:
+            self.overflows += 1
+            LABEL_OVERFLOWS.inc()
+            return self.overflow
+        label = _sanitize(str(value))
+        lru[value] = label
+        return label
+
+    def __len__(self) -> int:
+        return len(self._lru)
+
+
+#: the process-wide peer domain: every peer address / connection label
+#: that becomes part of a metric name resolves through this one cap
+PEER_LABELS = BoundedLabels()
+
+
+def peer_label(addr) -> str:
+    """The bounded label for a peer address (LRU cap + overflow bucket):
+    THE helper every per-peer metric name must route through."""
+    return PEER_LABELS.get(addr)
+
+
+# per-(base, key) domains for labeled_counter/labeled_gauge values that
+# did not already come through peer_label — any dynamic value entering a
+# metric name is bounded, whichever door it used
+_DOMAINS: Dict[Tuple[str, str], BoundedLabels] = {}
+
+
+def _bounded_value(base: str, key: str, value) -> str:
+    dom = _DOMAINS.get((base, key))
+    if dom is None:
+        dom = _DOMAINS[(base, key)] = BoundedLabels()
+    return dom.get(value)
+
+
+def _labeled_name(base: str, labels: Dict[str, str]) -> str:
+    inner = ",".join(f'{k}="{labels[k]}"' for k in sorted(labels))
+    return f"{base}{{{inner}}}"
+
+
+def labeled_counter(base: str, reg: Optional[_metrics.MetricsRegistry]
+                    = None, **labels) -> _metrics.Counter:
+    """A counter named ``base{k="v",...}`` with every label value
+    bounded.  stable=False: labeled series are live-exposition data, not
+    part of the deterministic snapshot."""
+    reg = reg if reg is not None else _metrics.REGISTRY
+    name = _labeled_name(base, {k: _bounded_value(base, k, v)
+                                for k, v in labels.items()})
+    return reg.counter(name, stable=False)
+
+
+def labeled_gauge(base: str, reg: Optional[_metrics.MetricsRegistry]
+                  = None, **labels) -> _metrics.Gauge:
+    """The gauge analog of :func:`labeled_counter`."""
+    reg = reg if reg is not None else _metrics.REGISTRY
+    name = _labeled_name(base, {k: _bounded_value(base, k, v)
+                                for k, v in labels.items()})
+    return reg.gauge(name, stable=False)
+
+
+# ---------------------------------------------------------------------------
+# Mux traffic accounting
+# ---------------------------------------------------------------------------
+
+#: MuxIO instances born since the last reset_run_scope() — the seam
+#: FleetTelemetry reads per-peer totals from (mux objects themselves are
+#: buried inside connection runners).  Bounded: a long-lived node with
+#: connection churn must not accumulate an entry per historical
+#: connection forever (the registry series already aggregate per edge).
+MUX_IO: "deque[MuxIO]" = deque(maxlen=4096)
+
+
+def reset_run_scope() -> None:
+    """Start a fresh accounting scope (run_chaos_threadnet calls this at
+    the top of every run so two replays of one seed fold identical
+    MuxIO sets into their fleet reports)."""
+    MUX_IO.clear()
+
+
+def _edge_of(label: str) -> str:
+    """The stable edge identity of a mux label: `node0->node1#2.mux-i`
+    -> `node0->node1` (redials of one edge aggregate into one series)."""
+    return label.split(".mux", 1)[0].split("#", 1)[0]
+
+
+def _side_of(label: str) -> str:
+    if label.endswith(".mux-r"):
+        return "r"
+    return "i"          # `.mux-i`, plain `.mux` dialers, anything else
+
+
+class MuxIO:
+    """Per-connection mux ingress/egress accounting.
+
+    Registry series per (peer-edge, side, protocol-number), built lazily
+    once per protocol (the per-SDU path is two dict probes + two bound
+    counter incs); plain-int per-proto totals for the fleet report.
+    Construct ONLY under a ``registry.enabled`` guard — construction
+    formats labels."""
+
+    __slots__ = ("label", "edge", "side", "ingress_bytes", "egress_bytes",
+                 "ingress_sdus", "egress_sdus", "_in", "_out", "_reg")
+
+    def __init__(self, label: str,
+                 reg: Optional[_metrics.MetricsRegistry] = None):
+        self.label = str(label)
+        self.edge = _edge_of(self.label)
+        self.side = _side_of(self.label)
+        self.ingress_bytes: Dict[int, int] = {}
+        self.egress_bytes: Dict[int, int] = {}
+        self.ingress_sdus: Dict[int, int] = {}
+        self.egress_sdus: Dict[int, int] = {}
+        self._in: Dict[int, tuple] = {}
+        self._out: Dict[int, tuple] = {}
+        self._reg = reg
+        MUX_IO.append(self)
+
+    def _handles(self, table: Dict[int, tuple], num: int,
+                 direction: str) -> tuple:
+        h = table.get(num)
+        if h is None:
+            peer = peer_label(self.edge)
+            kw = {"peer": peer, "side": self.side, "proto": str(num)}
+            h = (labeled_counter(f"net.mux.{direction}_bytes",
+                                 reg=self._reg, **kw),
+                 labeled_counter(f"net.mux.{direction}_sdus",
+                                 reg=self._reg, **kw))
+            table[num] = h
+        return h
+
+    def ingress(self, num: int, nbytes: int) -> None:
+        b, s = self._handles(self._in, num, "ingress")
+        b.inc(nbytes)
+        s.inc()
+        self.ingress_bytes[num] = self.ingress_bytes.get(num, 0) + nbytes
+        self.ingress_sdus[num] = self.ingress_sdus.get(num, 0) + 1
+
+    def egress(self, num: int, nbytes: int) -> None:
+        b, s = self._handles(self._out, num, "egress")
+        b.inc(nbytes)
+        s.inc()
+        self.egress_bytes[num] = self.egress_bytes.get(num, 0) + nbytes
+        self.egress_sdus[num] = self.egress_sdus.get(num, 0) + 1
+
+    def totals(self) -> dict:
+        """Deterministic per-connection summary (sorted proto keys)."""
+        def tot(d):
+            return sum(d.values())
+        return {"edge": self.edge, "side": self.side,
+                "ingress_bytes": tot(self.ingress_bytes),
+                "egress_bytes": tot(self.egress_bytes),
+                "ingress_sdus": tot(self.ingress_sdus),
+                "egress_sdus": tot(self.egress_sdus),
+                "by_proto": {str(n): {
+                    "in_bytes": self.ingress_bytes.get(n, 0),
+                    "out_bytes": self.egress_bytes.get(n, 0),
+                    "in_sdus": self.ingress_sdus.get(n, 0),
+                    "out_sdus": self.egress_sdus.get(n, 0)}
+                    for n in sorted(set(self.ingress_bytes)
+                                    | set(self.egress_bytes))}}
+
+
+def mux_accounting() -> dict:
+    """Per-(edge, side) traffic totals aggregated over every MuxIO born
+    in the current run scope — redials of one edge merge.  Sorted keys
+    throughout: two seeded replays yield byte-identical JSON."""
+    agg: Dict[Tuple[str, str], dict] = {}
+    for io in MUX_IO:
+        key = (io.edge, io.side)
+        cur = agg.get(key)
+        t = io.totals()
+        if cur is None:
+            agg[key] = t
+            continue
+        for f in ("ingress_bytes", "egress_bytes",
+                  "ingress_sdus", "egress_sdus"):
+            cur[f] += t[f]
+        for n, row in t["by_proto"].items():
+            dst = cur["by_proto"].setdefault(
+                n, {"in_bytes": 0, "out_bytes": 0,
+                    "in_sdus": 0, "out_sdus": 0})
+            for f in row:
+                dst[f] += row[f]
+    return {f"{edge}|{side}": agg[(edge, side)]
+            for edge, side in sorted(agg)}

@@ -17,8 +17,8 @@ Ported from `ouroboros_tpu/simharness/__init__.py` (the port imports
 nothing of the JAX package): the simulator (`core.py`), STM (`stm.py`),
 the IO runtime (`io_runtime.py`) and ouro-race (`race.py`) are copied
 whole.  Left out: `faults.py` (FaultPlan, FaultyChannel and the other
-fault injectors), which imports `network.mux`; the port has no network
-layer yet.
+fault injectors), which waits for the diffusion slice with the chaos
+ThreadNet that drives it.
 """
 from typing import Any
 

@@ -557,13 +557,20 @@ class ChainDB:
         the shallowest is built here: walk back from `block` to the
         fragment, then out along its successors.  Invalid or missing
         ancestors prune the candidate, as they prune the reference's
-        walk."""
+        walk.
+
+        The walk back reads each ancestor's predecessor from the
+        VolatileDB's index and decodes the ancestors only once it has
+        reached the fragment: a block stored behind an invalid one (a
+        peer serving a chain past a bad body) costs index lookups, not a
+        decode of every block back to the invalid one, which made a run
+        of such adds O(n^2) decodes."""
         if cache is None:
             cache = {}
         chain = self.current_chain
         anchor = chain.anchor
         anchor_hash = GENESIS_HASH if anchor.is_genesis else anchor.hash
-        ancestors: list = []
+        hashes: list = []
         h = block.prev_hash
         while True:
             if h == anchor_hash:
@@ -575,12 +582,13 @@ class ChainDB:
                 break
             if h in self.invalid:
                 return []
-            blk = self._decode_cached(h, cache)
-            if blk is None:
+            info = self.volatile.block_info(h)
+            if info is None:
                 return []
-            ancestors.append(blk)
-            h = blk.prev_hash
-        prefix = ancestors[::-1] + [block]
+            hashes.append(h)
+            h = info.prev_hash
+        prefix = [self._decode_cached(x, cache) for x in reversed(hashes)] \
+            + [block]
         exts = self._successors_closure(point_of(block), cache)
         return [(fork, prefix + ext) for ext in (exts or [[]])]
 

@@ -6,12 +6,12 @@ schema in Storage/ChainDB/Impl/Types.hs `TraceAddBlockEvent`).  The
 events are TYPED dataclasses — the log schema — so tests assert on
 decision events rather than string-matching a debug log.
 
+The default tracers forward into the simulator's dynamic trace
+(sim.trace_event), so every event is also visible in `run_trace` output;
 `collecting()` returns a tracer+list pair for assertions.
 
 Ported from `ouroboros_tpu/utils/tracer.py` (the port imports nothing of
-the JAX package). Left out: `sim_tracer` and `NodeTracers.for_sim`, which
-trace into the simulator (`simharness.trace_event`); the port has only the
-runtime registry of simharness so far.
+the JAX package). Copied whole.
 """
 from __future__ import annotations
 
@@ -49,6 +49,12 @@ def collecting() -> tuple[Tracer, list]:
     """(tracer, events) — events appended in trace order, for tests."""
     out: list = []
     return Tracer(out.append), out
+
+
+def sim_tracer(label: str) -> Tracer:
+    """Tracer into the simulator/runtime dynamic trace (traceM analog)."""
+    from .. import simharness as sim
+    return Tracer(lambda ev: sim.trace_event(ev, label))
 
 
 # ---------------------------------------------------------------------------
@@ -117,3 +123,10 @@ class NodeTracers:
     @classmethod
     def nop(cls) -> "NodeTracers":
         return cls()
+
+    @classmethod
+    def for_sim(cls, label: str) -> "NodeTracers":
+        return cls(chain_db=sim_tracer(f"{label}.chaindb"),
+                   forge=sim_tracer(f"{label}.forge"),
+                   fetch=sim_tracer(f"{label}.fetch"),
+                   chain_sync=sim_tracer(f"{label}.chainsync"))

@@ -314,3 +314,60 @@ def test_chaindb_restart_on_the_card(dev):
     assert got[0] == got[1]
     assert got[0][0].hash == blocks[16].hash
     assert got[0][1] == sorted(b.hash for b in bad[17:])
+
+
+def test_two_node_sync_on_the_card(dev):
+    """chip_smoke.py's node phase at a small size: a 40-block Shelley
+    chain (KES depth 3) served by a NodeKernel over a ChainDB (4 blocks
+    immutable, 36 volatile) to a fresh follower on TorchBackend, wired by
+    connect_nodes in the port's simulator: the follower reaches the
+    server's tip and the forger's state hash, its header flushes and
+    ChainDB adds through the four window kernels."""
+    from ouroboros_tpu_torch import chainsynth
+    from ouroboros_tpu_torch import simharness as sim
+    from ouroboros_tpu_torch.consensus.headers import (ProtocolBlock,
+                                                       ProtocolHeader)
+    from ouroboros_tpu_torch.crypto.backend import GLOBAL_BETA_CACHE
+    from ouroboros_tpu_torch.crypto.cpp_backend import CppBackend
+    from ouroboros_tpu_torch.eras.shelley import ShelleyTx
+    from ouroboros_tpu_torch.node import (BlockchainTime, NodeKernel,
+                                          connect_nodes)
+    from ouroboros_tpu_torch.storage import MockFS
+    ext, blocks, state = chainsynth.forge_shelley(40, epoch_length=10,
+                                                  kes_depth=3)
+    fs = MockFS()
+    chainsynth.write_chaindb(fs, blocks, 4)
+    server_db = chainsynth.open_chaindb(fs, ext, CppBackend())
+    GLOBAL_BETA_CACHE.clear()
+    backend = TorchBackend(device=dev)
+    follower_db = chainsynth.open_chaindb(MockFS(), ext, backend)
+
+    def kernel(db, label, be):
+        return NodeKernel(
+            db, ext.ledger, None, BlockchainTime(1.0), label=label,
+            backend=be, header_decode=ProtocolHeader.decode,
+            block_decode_obj=lambda o: ProtocolBlock.decode(
+                o, tx_decode=ShelleyTx.decode),
+            tx_decode=ShelleyTx.decode)
+
+    async def main():
+        await sim.sleep(blocks[-1].slot + 1)
+        server = kernel(server_db, "server", None)
+        follower = kernel(follower_db, "follower", backend)
+        server.start()
+        follower.start()
+        connect_nodes(follower, server, delay=0.05)
+        while follower_db.tip_point() != server_db.tip_point():
+            assert sim.now() < 600, follower_db.tip_point()
+            await sim.sleep(0.05)
+        server.stop()
+        follower.stop()
+
+    K.reset_launches()
+    sim.run(main(), seed=0)
+    assert follower_db.tip_point().hash == blocks[-1].hash
+    assert not follower_db.invalid
+    assert (follower_db.current_ledger.ledger.state_hash()
+            == state.ledger.state_hash())
+    assert all(K.LAUNCHES[k] > 0 for k in ("ed25519_split", "vrf_verify",
+                                            "gamma8", "kes_hash"))

@@ -5,11 +5,15 @@ The port (`ouroboros_tpu_torch`) must import neither JAX nor anything of
 the JAX package, so it runs where JAX is not installed; its entry points
 run on the CUDA card and raise without one.
 """
+import ast
+import pathlib
 import subprocess
 import sys
 
 import pytest
 import torch
+
+_ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 # the chain database's slice, each named so that a module the walk misses
 # still fails the check
@@ -24,6 +28,30 @@ _NAMED = [
     "ouroboros_tpu_torch.utils.registry",
     "ouroboros_tpu_torch.storage.volatiledb",
     "ouroboros_tpu_torch.storage.chaindb",
+    # the node-to-node sync path's slice
+    "ouroboros_tpu_torch.network",
+    "ouroboros_tpu_torch.network.channel",
+    "ouroboros_tpu_torch.network.typed",
+    "ouroboros_tpu_torch.network.mux",
+    "ouroboros_tpu_torch.network.deltaq",
+    "ouroboros_tpu_torch.network.node_to_node",
+    "ouroboros_tpu_torch.network.protocols",
+    "ouroboros_tpu_torch.network.protocols.codec",
+    "ouroboros_tpu_torch.network.protocols.handshake",
+    "ouroboros_tpu_torch.network.protocols.chainsync",
+    "ouroboros_tpu_torch.network.protocols.blockfetch",
+    "ouroboros_tpu_torch.network.protocols.txsubmission",
+    "ouroboros_tpu_torch.network.protocols.keepalive",
+    "ouroboros_tpu_torch.node",
+    "ouroboros_tpu_torch.node.watchdog",
+    "ouroboros_tpu_torch.node.blockchain_time",
+    "ouroboros_tpu_torch.node.chain_sync",
+    "ouroboros_tpu_torch.node.block_fetch",
+    "ouroboros_tpu_torch.node.tx_submission",
+    "ouroboros_tpu_torch.node.kernel",
+    "ouroboros_tpu_torch.node.run",
+    "ouroboros_tpu_torch.observe.netmetrics",
+    "ouroboros_tpu_torch.testing.threadnet",
 ]
 
 _CHECK = r"""
@@ -50,7 +78,77 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 86          # every module of every slice imported
+    assert n_modules >= 109         # every module of every slice imported
+
+
+_BANNED = ("jax", "jaxlib", "ouroboros_tpu")
+
+
+def _banned(name) -> bool:
+    """A module name that is JAX's or the JAX package's (a relative import,
+    whose name is None or relative, is the port's own)."""
+    return isinstance(name, str) and name.split(".")[0] in _BANNED
+
+
+def banned_imports(source: str, filename: str = "<source>") -> list:
+    """(line, name) of every import in `source`, at any depth (module
+    level, in a function, a class or a branch), that names JAX or the
+    JAX package: `import x`, `from x import y` (absolute only; a relative
+    one stays in the port), and `importlib.import_module` or
+    `__import__` of a constant string.  `ouroboros_tpu_torch` is allowed."""
+    out = []
+    for node in ast.walk(ast.parse(source, filename)):
+        if isinstance(node, ast.Import):
+            out += [(node.lineno, a.name) for a in node.names
+                    if _banned(a.name)]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and _banned(node.module):
+                out.append((node.lineno, node.module))
+        elif isinstance(node, ast.Call) and node.args and \
+                isinstance(node.args[0], ast.Constant):
+            f = node.func
+            name = f.attr if isinstance(f, ast.Attribute) else \
+                getattr(f, "id", None)
+            if name in ("import_module", "__import__") and \
+                    _banned(node.args[0].value):
+                out.append((node.lineno, node.args[0].value))
+    return out
+
+
+def _port_sources() -> list:
+    files = sorted((_ROOT / "ouroboros_tpu_torch").rglob("*.py"))
+    return files + [_ROOT / "chip_smoke.py"]
+
+
+def test_no_import_at_any_depth_names_jax_or_the_jax_package():
+    """An AST scan of every file of the port and of chip_smoke.py: the
+    import check above sees only what importing a module imports, not an
+    import inside a function body that runs later."""
+    files = _port_sources()
+    assert len(files) > 100
+    bad = {str(f.relative_to(_ROOT)): found for f in files
+           if (found := banned_imports(f.read_text(), str(f)))}
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("line, caught", [
+    # the reference's lazy imports in node/chain_sync.py, copied literally
+    ("from ouroboros_tpu.consensus.ledger import OutsideForecastRange", True),
+    ("from ouroboros_tpu.crypto.batching import (\n"
+     "    validate_headers_coalesced,\n)", True),
+    ("import jax.numpy as jnp", True),
+    ("import jaxlib", True),
+    ("import importlib\nimportlib.import_module('ouroboros_tpu.node')", True),
+    ("__import__('jax')", True),
+    ("from ..consensus.ledger import OutsideForecastRange", False),
+    ("from ouroboros_tpu_torch.node import NodeKernel", False),
+    ("import ouroboros_tpu_torch.node", False),
+    ("importlib.import_module('ouroboros_tpu_torch.node')", False),
+])
+def test_the_scan_catches_a_lazy_import(line, caught):
+    body = "\n".join("        " + x for x in line.split("\n"))
+    src = f"async def flush():\n    if True:\n{body}\n"
+    assert bool(banned_imports(src)) == caught
 
 
 def _require_no_card():
@@ -197,3 +295,37 @@ def test_chaindb_default_backend_raises_without_a_card():
                                                         issuer=0)), ())
     with pytest.raises(RuntimeError):
         db.add_block(blk)
+
+
+def test_run_node_default_backend_raises_without_a_card():
+    """`run_node` with `backend=None` over a DB whose volatile blocks need
+    validation: ChainDB.open's initial selection validates them on
+    `default_backend()`, the card, and raises without one; nothing falls
+    back to the CPU."""
+    _require_no_card()
+    from ouroboros_tpu_torch import simharness as sim
+    from ouroboros_tpu_torch.consensus.ledger import ExtLedgerRules
+    from ouroboros_tpu_torch.consensus.protocols.praos import Praos
+    from ouroboros_tpu_torch.crypto import backend
+    from ouroboros_tpu_torch.ledgers.mock import MockLedger
+    from ouroboros_tpu_torch.node import BlockchainTime, RunNodeArgs, run_node
+    from ouroboros_tpu_torch.storage import MockFS, VolatileDB
+    from ouroboros_tpu_torch.testing.threadnet import (PraosNetworkFactory,
+                                                       ThreadNetConfig)
+    backend.set_default_backend(None)
+    fac = PraosNetworkFactory(ThreadNetConfig(n_nodes=1, f=1.0))
+    rules = ExtLedgerRules(Praos(fac.protocol_cfg), MockLedger(fac.genesis))
+    fs = MockFS()
+    vol = VolatileDB.open(fs, 50)
+    for b in fac.forge_chain_from(0, rules.initial_state(), 3):
+        vol.put_block(b.hash, b.prev_hash, b.slot, b.block_no, b.bytes)
+    args = RunNodeArgs(
+        fs=fs, ext_rules=rules, encode_state=fac.enc_state,
+        decode_state=fac.dec_state, block_decode=fac.block_decode,
+        btime=BlockchainTime(1.0), with_mempool=False)
+
+    async def main():
+        run_node(args)
+
+    with pytest.raises(RuntimeError):
+        sim.run(main())
