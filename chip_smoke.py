@@ -152,11 +152,35 @@ the CUDA toolkit.  Phases:
    `validate_headers_coalesced`, to the forger's state_hash.  The bad
    peers' and the last follower run on the first one's backend, its key
    cache warm;
-11. the standalone batch-verify path: `perf_probe --old` at 4096 Ed25519
+11. the diffusion slice (node/diffusion.py with the snockets, the
+   subscription workers, the error policies and the node-to-client
+   server; the chaos ThreadNet): under the real-clock IO runtime, every
+   node's slots 2 ms long so that its clock stands past the chain's last
+   slot once the servers are up, three server NodeKernels each holding
+   phase 5's chain in an ImmutableDB behind `run_data_diffusion` on a
+   loopback TCP port; a fresh follower at genesis on a new TorchBackend
+   (ChainSync's window 32, the production watchdog limits, a mempool, a
+   local address on a Unix socket) subscribes to all three and syncs to
+   the forger's state_hash, each of the four window kernels launched,
+   every block added once, no watchdog event, no suspension, no failed
+   thread; a wallet on the local socket reads the tip and the state hash
+   and submits 64 transactions and 8 with a flipped witness, each
+   verdict CppBackend's, ed25519_split launched; a second fresh follower
+   on the first's backend loses a server (its diffusion, kernel and
+   connections stopped) once its tip passes block 1000 and reaches the
+   state_hash from the other two, the lost peer suspended as
+   `default_node_policies` judges its ending; then the reference's two
+   chaos configurations (tests/test_chaos.py's `chaos_config(1)`,
+   tests/test_netobs.py's `_fleet_config()`) in the simulator, each with
+   every node on one fresh TorchBackend and again on CppBackend: equal
+   fault events, chains and fleet reports, the tests' own checks on both,
+   the four window kernels launched in each card run.  (Phases 11-13 of
+   earlier versions of this script are 12-14 here);
+12. the standalone batch-verify path: `perf_probe --old` at 4096 Ed25519
    and 2048 VRF lanes (split and full Ed25519 verify, VRF verify, betas;
    each row asserts that every lane verifies), where ed25519_verify and
    the three kernels the probe drives must launch;
-12. the field microbenchmark path: field_chain, field_chain_lp (mul and
+13. the field microbenchmark path: field_chain, field_chain_lp (mul and
    sqr), point_chain and point_chain_x4 each held exactly against its
    plain version on the card for every operation at both of its chain
    lengths, at every lane count the microbenchmark runs (4096, the JAX
@@ -175,7 +199,7 @@ the CUDA toolkit.  Phases:
    host time.  After them one more replay of phase 5's valid chain runs
    under torch.profiler for the card's busy seconds: its some hundred
    thousand traced kernels could reach a later trace, so it comes last;
-13. a `main_path` JSON line, a `microbench_field` JSON line (the
+14. a `main_path` JSON line, a `microbench_field` JSON line (the
    per-operation rows at both lane counts), a `replay` JSON line
    (blocks/s, proofs/s, the producer's host_seq and submit seconds with
    the fill and fold inside it, and the consumer's drain seconds, per
@@ -206,7 +230,15 @@ the CUDA toolkit.  Phases:
    launches on both backends; leg 3's sync, adoption ms p50/p95/max, the
    service's device and CPU fallback batches, the break-even table and
    launches, the server's adds counted apart; the phase's launches, the
-   followers' only; the card), a `kernels` JSON line
+   followers' only; the card), a `diffusion` JSON line (leg 1's seconds,
+   blocks/s, flushes, their sizes and ms p50/p95/max, add ms, the wall
+   split into header flushes, ChainDB adds and the rest, the blocks
+   fetched from each peer, each connection's mux bytes, the longest card
+   call, and launches, beside phase 10's leg 1; the wallet's submission
+   ms and launches; the lost peer's leg: seconds, fetched per peer
+   before and after, the suspension and redials; each chaos
+   configuration's seconds on both backends and launches; the phase's
+   launches; the card), a `kernels` JSON line
    (each
    kernel's launches are those of its path: the main path's, the
    probe's for ed25519_verify, the microbenchmark's for the chains, and
@@ -216,7 +248,8 @@ the CUDA toolkit.  Phases:
    saturated leg as `serve_launches`, and in the first sharded replay
    (for ed25519_verify, the sharded batch verify) as
    `sharded_launches`, in the chain database phase as
-   `chaindb_launches`, and in the node phase as `node_launches`; its
+   `chaindb_launches`, in the node phase as `node_launches`, and in the
+   diffusion phase as `diffusion_launches`; its
    launch shape as threads_per_lane and block; kes_hash's 65536-lane
    row under `wide`), the card line, and as
    the last line {"ok": true, "device": {...}}.
@@ -328,6 +361,17 @@ NODE_DELAY = 0.05
 NODE_SLOT_S = 1.0
 NODE_POLL_S = 0.05
 NODE_VIRTUAL_LIMIT_S = 3600.0
+# the diffusion slice under the real-clock IO runtime: DIFF_PEERS servers
+# on loopback TCP; slots of DIFF_SLOT_S, so that the clock passes the
+# chain's last slot (2,924) some 6 s after the runtime starts (at 1 s
+# slots every block would be from the future); a sync that has not
+# reached the tip in DIFF_LIMIT_S wall seconds fails
+DIFF_PEERS = 3
+DIFF_SLOT_S = 0.002
+DIFF_POLL_S = 0.01
+DIFF_LIMIT_S = 300.0
+DIFF_LOSE_AT = 1000          # leg 3: a server stopped once the tip passes it
+WALLET_VALID, WALLET_FLIPPED = 64, 8
 
 
 def log(*a):
@@ -1067,6 +1111,12 @@ def _pct(xs, q):
     return xs[min(len(xs) - 1, int(q * len(xs)))]
 
 
+def _ms(xs):
+    """p50, p95 and max of seconds `xs`, in ms (None for none)."""
+    return {"p50": _pct(xs, 0.50) * 1e3, "p95": _pct(xs, 0.95) * 1e3,
+            "max": max(xs) * 1e3} if xs else None
+
+
 def chaindb_phase(card: str, ext, chain, want_hash: bytes,
                   chains: dict) -> dict:
     """Phase 9: the chain database on the card, every run on a fresh
@@ -1614,9 +1664,6 @@ def node_phase(card: str, ext, chain, want_hash: bytes,
     # and ends: the one failure every run has
     no_isect = ("server", "server->follower.connect-i",
                 ChainSyncClientError, "no intersection")
-    ms = lambda xs: {"p50": _pct(xs, 0.50) * 1e3,
-                     "p95": _pct(xs, 0.95) * 1e3,
-                     "max": max(xs) * 1e3} if xs else None
     t_phase = time.perf_counter()
     totals = {k: 0 for k in K.LAUNCHES}
 
@@ -1655,8 +1702,8 @@ def node_phase(card: str, ext, chain, want_hash: bytes,
         "flushes": len(rec["flushes"]),
         "flush_sizes": [n for n, _s in rec["flushes"]],
         "flush_headers_hist": rec["flush_headers_hist"],
-        "flush_ms": ms([s for _n, s in rec["flushes"]]),
-        "adds": len(rec["add_s"]), "add_ms": ms(rec["add_s"]),
+        "flush_ms": _ms([s for _n, s in rec["flushes"]]),
+        "adds": len(rec["add_s"]), "add_ms": _ms(rec["add_s"]),
         "split_s": {"header_flushes": flush_total, "chaindb_adds": add_total,
                     "rest": rec["wall_s"] - flush_total - add_total},
         "launches": launches}
@@ -1814,13 +1861,13 @@ def node_phase(card: str, ext, chain, want_hash: bytes,
         sync_s=rec["sync_s"], sync_flushes=rec["sync_flushes"],
         sync_launches=rec["sync_launches"],
         seconds=rec["wall_s"] - rec["sync_s"],
-        adoption_ms=ms(lat), coalesced_flushes=len(rec["coalesced"]),
+        adoption_ms=_ms(lat), coalesced_flushes=len(rec["coalesced"]),
         coalesced_sizes=sorted(set(rec["coalesced"])),
         direct_flushes_caught_up=len(rec["flushes"]) - rec["sync_flushes"],
         service=svc, batch_sizes={str(k): v for k, v
                                   in sorted(rec["batch_sizes"].items())},
         follower_adds=len(rec["add_s"]) - rec["sync_adds"],
-        follower_add_ms=ms(rec["add_s"][rec["sync_adds"]:]),
+        follower_add_ms=_ms(rec["add_s"][rec["sync_adds"]:]),
         launches=follow_launches,
         server_launches=server_launches)
     log(f"node leg 3: synced to block {n_sync - 1} in {rec['sync_s']:.3f} s "
@@ -1843,6 +1890,598 @@ def node_phase(card: str, ext, chain, want_hash: bytes,
             "codecs": "ProtocolHeader.decode, ProtocolBlock.decode with "
                       "ShelleyTx.decode",
             "sync": sync, "bad_peer": leg2, "caught_up": leg3,
+            "launches": totals, "card": card}
+
+
+def _chaos_configs() -> dict:
+    """The reference's two chaos configurations, exactly as its tests
+    define them, from the port's classes: `chaos_config(1)`
+    (tests/test_chaos.py:40-56: 3 nodes in a mesh, 30 slots, drops,
+    stalls, disconnects and one partition) and `_fleet_config()`
+    (tests/test_netobs.py:276-284: 10 nodes in a ring, a partition into
+    halves)."""
+    from ouroboros_tpu_torch.simharness import FaultSpec, Partition
+    from ouroboros_tpu_torch.testing import ChaosConfig, ThreadNetConfig
+    half = tuple(f"node{i}" for i in range(5))
+    other = tuple(f"node{i}" for i in range(5, 10))
+    return {
+        "chaos_config(1)": ChaosConfig(
+            net=ThreadNetConfig(n_nodes=3, n_slots=30, k=10, f=0.5, seed=1,
+                                topology="mesh"),
+            spec=FaultSpec(jitter=0.05, drop_prob=0.02, stall_prob=0.01,
+                           stall_for=4.0, disconnect_prob=0.01),
+            partitions=(Partition(10.0, 16.0,
+                                  (("node0",), ("node1", "node2"))),),
+            settle_slots=15, error_scale=0.5),
+        "_fleet_config()": ChaosConfig(
+            net=ThreadNetConfig(n_nodes=10, n_slots=8, k=10, f=0.5, seed=7,
+                                topology="ring"),
+            spec=FaultSpec(jitter=0.04, drop_prob=0.01),
+            partitions=(Partition(3.0, 5.0, (half, other)),),
+            settle_slots=6, error_scale=0.5)}
+
+
+def _chaos_checks(name: str, r) -> list:
+    """The reference tests' own assertions on one chaos run
+    (test_chaos_net_converges_and_recovers, and the fleet half of
+    test_ten_node_chaos_fleet_report_and_replay_identity); the ones that
+    fail."""
+    bad = []
+    if r.failures:
+        bad.append(f"failures {r.failures}")
+    if name == "chaos_config(1)":
+        heights = [c.head_block_no for c in r.chains]
+        if not r.common_prefix_ok(10):
+            bad.append(f"no common prefix, heights {heights}")
+        if min(heights) < 3:
+            bad.append(f"no progress, heights {heights}")
+        if not r.fault_events or not any(e.kind == "fault"
+                                         for e in r.trace):
+            bad.append("no fault injected")
+        if not r.watchdog_events():
+            bad.append("no watchdog fired")
+        if not r.suspensions():
+            bad.append("no peer demoted")
+        if not r.demoted_then_repromoted():
+            bad.append("no peer re-promoted")
+        return bad
+    fleet = r.fleet or {}
+    ad, mux = fleet.get("adoption", {}), fleet.get("mux", {})
+    if fleet.get("nodes") != [f"node{i}" for i in range(10)]:
+        bad.append(f"fleet nodes {fleet.get('nodes')}")
+    elif not (ad["blocks"] > 0 and ad["time_to_50"]["n"] > 0
+              and ad["time_to_95"]["n"] > 0
+              and 0 < ad["time_to_95"]["p50"]
+              and ad["time_to_50"]["p50"] <= ad["time_to_95"]["p50"]):
+        bad.append(f"adoption {ad}")
+    if not mux or sum(m["ingress_bytes"] for m in mux.values()) > \
+            sum(m["egress_bytes"] for m in mux.values()) or \
+            not any(m["egress_bytes"] > 0 for m in mux.values()):
+        bad.append("mux accounting")
+    if not fleet.get("per_edge_delivery"):
+        bad.append("no per-edge delivery")
+    return bad
+
+
+def diffusion_phase(card: str, ext, chain, want_hash: bytes,
+                    node_sync: dict) -> dict:
+    """Phase 11: the diffusion slice (node/diffusion.py, network/
+    {snocket,socket_bearer,subscription,error_policy}.py,
+    node/node_to_client.py, the chaos ThreadNet) on the card.
+
+    Legs 1-3 run in one `sim.io_run`, the real-clock IO runtime, every
+    node with slots of DIFF_SLOT_S.  DIFF_PEERS servers each hold phase
+    5's chain in an ImmutableDB (the first replayed without crypto, the
+    others opened from its ledger snapshot at the tip, as a restarted node
+    opens) and run `run_data_diffusion(kernel,
+    DiffusionArguments(addresses=[("127.0.0.1", 0)]), TcpSnocket())`; the
+    ephemeral ports are read from `d.listeners[0].addr`.  Leg 1: a fresh
+    follower at genesis on a new TorchBackend with a cleared beta cache,
+    the kernel's `chain_sync_window` of 32 and the production
+    NodeTimeLimits, a Mempool over the Shelley ledger, runs
+    `run_data_diffusion` with the servers as `ip_producers`
+    (`ip_valency` 3, initiator-only) and a local address on a
+    UnixSnocket, until its tip is the chain's: its ledger at the forger's
+    state_hash, each of the four window kernels launched, every block
+    added once, no watchdog event, no suspension, no failed thread.  Leg
+    2: a wallet on that local address (`connect_local_client_via`)
+    queries the tip and the state hash, then submits WALLET_VALID
+    transactions and WALLET_FLIPPED with a flipped witness
+    (`chainsynth.wallet_txs`) one at a time; every verdict must be a
+    Mempool's over CppBackend on the same transactions, and ed25519_split
+    must launch.  Leg 3: a second fresh follower on leg 1's backend (its
+    key cache warm, the beta cache cleared) syncs from the same servers;
+    once its tip passes block DIFF_LOSE_AT, server 0's diffusion and
+    kernel stop and its connections close, as its process's exit would
+    close them; the follower reaches the tip and the state_hash from the
+    other two, and its subscription worker records the lost peer's
+    ending as `default_node_policies` judges it (a suspension of the
+    consumer, not of the peer).  Leg 4 runs the reference's two chaos
+    configurations in the simulator, each once with every node on one
+    fresh card TorchBackend (the ThreadNet factory's backend replaced
+    through `testing.threadnet.OpensslBackend`, as the port's ThreadNet
+    test replaces it) and once on CppBackend: equal fault events, chains
+    and fleet reports, the reference tests' assertions on each, and the
+    four window kernels launched in each card run.  Returns the
+    `diffusion` line's dict; `launches` is the phase's own count."""
+    import collections
+    import shutil
+    import tempfile
+
+    from ouroboros_tpu_torch import chainsynth
+    from ouroboros_tpu_torch import simharness as sim
+    from ouroboros_tpu_torch.chain import point_of
+    from ouroboros_tpu_torch.chain.block import Point
+    from ouroboros_tpu_torch.consensus.headers import (ProtocolBlock,
+                                                       ProtocolHeader)
+    from ouroboros_tpu_torch.consensus.mempool import Mempool
+    from ouroboros_tpu_torch.crypto import kernels as K
+    from ouroboros_tpu_torch.crypto.backend import GLOBAL_BETA_CACHE
+    from ouroboros_tpu_torch.crypto.cpp_backend import CppBackend
+    from ouroboros_tpu_torch.crypto.torch_backend import TorchBackend
+    from ouroboros_tpu_torch.eras.shelley import ShelleyTx
+    from ouroboros_tpu_torch.network.error_policy import (
+        default_node_policies, eval_error_policies)
+    from ouroboros_tpu_torch.network.snocket import TcpSnocket, UnixSnocket
+    from ouroboros_tpu_torch.node import BlockchainTime, NodeKernel
+    from ouroboros_tpu_torch.node import chain_sync as CS
+    from ouroboros_tpu_torch.node.diffusion import (
+        INITIATOR_ONLY, DiffusionArguments, connect_local_client_via,
+        run_data_diffusion)
+    from ouroboros_tpu_torch.observe import netmetrics
+    from ouroboros_tpu_torch.observe.propagation import PropagationTracker
+    from ouroboros_tpu_torch.simharness import runtime
+    from ouroboros_tpu_torch.storage import MockFS
+    from ouroboros_tpu_torch.storage.ledgerdb import LedgerDB
+    from ouroboros_tpu_torch.storage.stream import pickle_encode
+    from ouroboros_tpu_torch.testing import run_chaos_threadnet
+    from ouroboros_tpu_torch.testing import threadnet as TN
+
+    class ServerTcp(TcpSnocket):
+        """TcpSnocket whose listeners remember the bearers they accept,
+        so that stopping a server closes its connections as its process's
+        exit would."""
+
+        def __init__(self):
+            self.accepted = []
+
+        async def listen(self, addr):
+            lst = await super().listen(addr)
+            accept = lst.accept
+
+            async def remembering():
+                bearer, remote = await accept()
+                self.accepted.append(bearer)
+                return bearer, remote
+            lst.accept = remembering
+            return lst
+
+    def block_obj(obj):
+        return ProtocolBlock.decode(obj, tx_decode=ShelleyTx.decode)
+
+    def kernel(db, label, backend, mempool=None):
+        return NodeKernel(db, ext.ledger, mempool,
+                          BlockchainTime(DIFF_SLOT_S), label=label,
+                          backend=backend,
+                          header_decode=ProtocolHeader.decode,
+                          block_decode_obj=block_obj,
+                          tx_decode=ShelleyTx.decode)
+
+    def pt(p):
+        return (p.slot, p.hash.hex())
+
+    tip = point_of(chain[-1])
+    t_phase = time.perf_counter()
+    totals = {k: 0 for k in K.LAUNCHES}
+
+    def count(launches):
+        for k, v in launches.items():
+            totals[k] += v
+
+    # the header flushes, and every card call of the followers' backend,
+    # timed where they run: each blocks the event loop that serves every
+    # peer while it runs
+    flushes: list = []                  # (headers, seconds)
+    calls: list = []                    # (method, seconds)
+    real_batched = CS.validate_headers_batched
+
+    def timed_batched(protocol, headers, *a, **kw):
+        t = time.perf_counter()
+        try:
+            return real_batched(protocol, headers, *a, **kw)
+        finally:
+            flushes.append((len(headers), time.perf_counter() - t))
+
+    fbackend = TorchBackend()
+    for name in ("verify_mixed", "vrf_betas_batch", "verify_ed25519_batch"):
+        def timed(*a, _real=getattr(fbackend, name), _name=name, **kw):
+            t = time.perf_counter()
+            try:
+                return _real(*a, **kw)
+            finally:
+                calls.append((_name, time.perf_counter() - t))
+        setattr(fbackend, name, timed)
+    _ext, pools = chainsynth.shelley_setup(
+        REPLAY_BLOCKS, epoch_length=REPLAY_EPOCH, kes_depth=REPLAY_KES_DEPTH)
+    sock_dir = tempfile.mkdtemp(prefix="ouro-diffusion-")
+    local_path = os.path.join(sock_dir, "node.sock")
+    out: dict = {}
+
+    async def main():
+        rt = runtime.current()
+        rt.collect_trace = True
+        # -- the servers
+        server_backend = TorchBackend()
+        servers = []
+        t = time.perf_counter()
+        snap = None
+        for i in range(DIFF_PEERS):
+            fs = MockFS()
+            chainsynth.write_chaindb(fs, chain, len(chain))
+            if snap is not None:
+                LedgerDB.take_snapshot(fs, chain[-1].slot, *snap,
+                                       pickle_encode)
+            db = chainsynth.open_chaindb(fs, ext, server_backend)
+            if db.tip_point() != tip:
+                raise AssertionError(f"diffusion: server {i} opened at "
+                                     f"{pt(db.tip_point())}")
+            snap = (db.tip_point(), db.current_ledger)
+            k = kernel(db, f"server{i}", server_backend)
+            k.start()
+            snk = ServerTcp()
+            d = await run_data_diffusion(
+                k, DiffusionArguments(addresses=[("127.0.0.1", 0)]), snk)
+            servers.append({"kernel": k, "diffusion": d, "snocket": snk,
+                            "addr": d.listeners[0].addr})
+        out["servers_open_s"] = time.perf_counter() - t
+        addrs = [s["addr"] for s in servers]
+        peer_of = {f"{lab}->{a}": i for i, a in enumerate(addrs)
+                   for lab in ("follower", "follower2")}
+        # every node's clock must stand past the chain's last slot
+        wait = (chain[-1].slot + 2) * DIFF_SLOT_S - sim.now()
+        out["clock_wait_s"] = max(wait, 0.0)
+        await sim.sleep(wait)
+
+        async def sync(label, mempool=False, local=None, lose_at=None,
+                       kernels=MAIN_PATH):
+            """One follower from genesis to the chain's tip; its record.
+            Each of `kernels` must launch (a warm key cache ships no KES
+            jobs: the paths it has finished)."""
+            GLOBAL_BETA_CACHE.clear()
+            fdb = chainsynth.open_chaindb(MockFS(), ext, fbackend)
+            mp = Mempool(ext.ledger, lambda: (fdb.current_ledger.ledger,
+                                              fdb.tip_point()),
+                         backend=fbackend) if mempool else None
+            add_s, added = [], collections.Counter()
+            real_add = fdb.add_block
+
+            def timed_add(block):
+                t = time.perf_counter()
+                try:
+                    return real_add(block)
+                finally:
+                    add_s.append(time.perf_counter() - t)
+                    added[block.hash] += 1
+            fdb.add_block = timed_add
+            follower = kernel(fdb, label, fbackend, mp)
+            follower.propagation = PropagationTracker(
+                node=label, cap=len(chain) + 64)
+            netmetrics.reset_run_scope()
+            n_trace = len(rt.trace)
+            del flushes[:], calls[:]
+            K.reset_launches()
+            slot0 = follower.btime.current.value
+            follower.start()
+            d = await run_data_diffusion(
+                follower, DiffusionArguments(
+                    ip_producers=addrs, ip_valency=DIFF_PEERS,
+                    mode=INITIATOR_ONLY, local_address=local),
+                TcpSnocket(), local_snocket=UnixSnocket())
+            endings = []                # (addr, exception) a connection
+            for w in d.workers:
+                def recording(addr, exc, _real=w._on_conn_end):
+                    endings.append((addr, exc))
+                    return _real(addr, exc)
+                w._on_conn_end = recording
+            t0 = time.perf_counter()
+
+            def fetched():
+                per = collections.Counter(
+                    peer_of.get(follower.propagation.stage_peer(
+                        b.hash, "body_arrived")) for b in chain)
+                return [per[i] for i in range(DIFF_PEERS)]
+            lost = None
+            while fdb.tip_point() != tip:
+                if time.perf_counter() - t0 > DIFF_LIMIT_S:
+                    raise AssertionError(
+                        f"diffusion {label}: at {pt(fdb.tip_point())} after "
+                        f"{DIFF_LIMIT_S} s; failures "
+                        f"{_thread_failures(follower)}")
+                if lose_at is not None and lost is None and \
+                        fdb.current_chain.head_block_no >= lose_at:
+                    s0 = servers[0]
+                    s0["diffusion"].stop()
+                    s0["kernel"].stop()
+                    for b in s0["snocket"].accepted:
+                        b.close()
+                    lost = {"at_block": fdb.current_chain.head_block_no,
+                            "at_s": time.perf_counter() - t0,
+                            "at_runtime_s": sim.now(),
+                            "fetched_before": fetched()}
+                await sim.sleep(DIFF_POLL_S)
+            wall = time.perf_counter() - t0
+            launches = dict(K.LAUNCHES)
+            events = rt.trace[n_trace:]
+            rec = {
+                "fdb": fdb, "kernel": follower, "diffusion": d,
+                "mempool": mp, "wall_s": wall,
+                "blocks_per_s": len(chain) / wall,
+                "flushes": len(flushes),
+                "flush_sizes": sorted({n for n, _s in flushes}),
+                "flush_ms": _ms([s for _n, s in flushes]),
+                "adds": len(add_s), "add_ms": _ms(add_s),
+                "split_s": {"header_flushes": sum(s for _n, s in flushes),
+                            "chaindb_adds": sum(add_s)},
+                "blocks_added_twice": sum(1 for c in added.values()
+                                          if c > 1),
+                "fetched_per_peer": fetched(),
+                "card_calls": len(calls),
+                "card_call_max_ms": max(s for _n, s in calls) * 1e3,
+                "card_call_s": sum(s for _n, s in calls),
+                "longest_card_call": max(calls, key=lambda c: c[1])[0],
+                "mux": {k: {f: v[f] for f in ("ingress_bytes",
+                                              "egress_bytes")}
+                        for k, v in netmetrics.mux_accounting().items()
+                        if k.startswith(label + "->")},
+                "slot_ticks_per_node": follower.btime.current.value - slot0,
+                "watchdog": [p for _t, lab, p in events
+                             if lab == "watchdog"],
+                "suspensions": [p for _t, lab, p in events
+                                if lab == "subscription"
+                                and p[1] == "suspend"],
+                "dials": [p for _t, lab, p in events
+                          if lab == "subscription" and p[1] == "dial"],
+                "failures": [(n, tl, repr(e)) for n, tl, e
+                             in _thread_failures(follower)],
+                "launches": launches, "lost": lost, "endings": endings,
+                "worker": d.workers[0]}
+            rec["split_s"]["rest"] = wall - rec["split_s"]["header_flushes"] \
+                - rec["split_s"]["chaindb_adds"]
+            if fdb.invalid or \
+                    fdb.current_ledger.ledger.state_hash() != want_hash:
+                raise AssertionError(f"diffusion {label}: {len(fdb.invalid)} "
+                                     f"invalid, or a state_hash not the "
+                                     f"forger's")
+            # a lost peer's connection threads end with its connection
+            lost_id = f"{label}->{addrs[0]}" if lost is not None else None
+            rec["failures"] = [f for f in rec["failures"]
+                               if lost_id is None
+                               or not f[1].startswith(lost_id)]
+            missing = [k for k in kernels if launches[k] == 0]
+            if missing or rec["blocks_added_twice"] or rec["failures"] or \
+                    len(added) != len(chain):
+                raise AssertionError(
+                    f"diffusion {label}: kernels not launched {missing}, "
+                    f"{rec['blocks_added_twice']} blocks added twice, "
+                    f"{len(added)} of {len(chain)} blocks added, failures "
+                    f"{rec['failures']}")
+            return rec
+
+        def stop(rec):
+            rec["kernel"].stop()
+            rec["diffusion"].stop()
+
+        # -- leg 1: a fresh relay from three peers
+        rec = await sync("follower", mempool=True, local=local_path)
+        count(rec["launches"])
+        if rec["watchdog"] or rec["suspensions"] or rec["endings"] or \
+                len(rec["dials"]) != DIFF_PEERS:
+            raise AssertionError(
+                f"diffusion leg 1: watchdog events {rec['watchdog']}, "
+                f"suspensions {rec['suspensions']}, connection endings "
+                f"{rec['endings']}, dials {rec['dials']}")
+        out["leg1"] = rec
+        log(f"diffusion leg 1: {len(chain)} blocks from {DIFF_PEERS} TCP "
+            f"peers in {rec['wall_s']:.3f} s ({rec['blocks_per_s']:.1f} "
+            f"blocks/s), state_hash == forger's; {rec['flushes']} flushes "
+            f"(sizes {rec['flush_sizes']}), ms p50 "
+            f"{rec['flush_ms']['p50']:.3f} p95 {rec['flush_ms']['p95']:.3f} "
+            f"max {rec['flush_ms']['max']:.3f}; adds ms p50 "
+            f"{rec['add_ms']['p50']:.3f} max {rec['add_ms']['max']:.3f}; "
+            f"split {rec['split_s']}; fetched per peer "
+            f"{rec['fetched_per_peer']}; longest card call "
+            f"{rec['card_call_max_ms']:.3f} ms ({rec['longest_card_call']}); "
+            f"launches {rec['launches']}")
+
+        # -- leg 2: a wallet on the local socket
+        fdb, mp = rec["fdb"], rec["mempool"]
+        client = await connect_local_client_via(
+            UnixSnocket(), local_path,
+            (rec["kernel"].network_magic, block_obj))
+        if client is None:
+            raise AssertionError("diffusion leg 2: handshake refused")
+        got_tip = Point.decode(await client.query(["tip"]))
+        got_hash = await client.query(["state-hash"])
+        txs = chainsynth.wallet_txs(pools, fdb.current_ledger.ledger,
+                                    WALLET_VALID, WALLET_FLIPPED)
+        ledger_at_tip = fdb.current_ledger.ledger
+        ref = Mempool(ext.ledger, lambda: (ledger_at_tip, tip),
+                      backend=CppBackend())
+        want = []
+        for tx in txs:
+            added, rejected = ref.try_add_txs([tx])
+            want.append(None if added else str(rejected[0][1]))
+        K.reset_launches()
+        verdicts, sub_s = [], []
+        for tx in txs:
+            t = time.perf_counter()
+            verdicts.append(await client.submit_tx(tx))
+            sub_s.append(time.perf_counter() - t)
+        launches = dict(K.LAUNCHES)
+        count(launches)
+        client.mux.stop()
+        ok_valid = want[:WALLET_VALID] == [None] * WALLET_VALID
+        ok_bad = all(v is not None for v in want[WALLET_VALID:])
+        if got_tip != tip or got_hash != want_hash or verdicts != want or \
+                not ok_valid or not ok_bad or ("ed25519_split" in MAIN_PATH
+                                               and launches["ed25519_split"]
+                                               == 0) or \
+                len(mp.get_snapshot().entries) != WALLET_VALID:
+            raise AssertionError(
+                f"diffusion leg 2: tip {pt(got_tip)}, state hash "
+                f"{got_hash == want_hash}, verdicts {verdicts} != "
+                f"CppBackend's {want}, launches {launches}")
+        out["leg2"] = {"tip": pt(got_tip), "state_hash": got_hash.hex(),
+                       "submitted": len(txs), "accepted": WALLET_VALID,
+                       "rejected": sorted(set(want[WALLET_VALID:])),
+                       "submit_ms": _ms(sub_s), "launches": launches}
+        log(f"diffusion leg 2: wallet tip and state hash == forger's; "
+            f"{len(txs)} submissions, verdicts == CppBackend's "
+            f"({WALLET_VALID} accepted, {WALLET_FLIPPED} rejected: "
+            f"{out['leg2']['rejected']}), ms p50 "
+            f"{out['leg2']['submit_ms']['p50']:.3f} p95 "
+            f"{out['leg2']['submit_ms']['p95']:.3f} max "
+            f"{out['leg2']['submit_ms']['max']:.3f}; launches {launches}")
+        stop(rec)
+
+        # -- leg 3: a peer lost mid-sync
+        rec = await sync("follower2", lose_at=DIFF_LOSE_AT,
+                         kernels=[k for k in MAIN_PATH if k != "kes_hash"])
+        count(rec["launches"])
+        lost, w = rec["lost"], rec["worker"]
+        lost_addr = addrs[0]
+        ends = [e for a, e in rec["endings"] if a == lost_addr]
+        susp = [p for p in rec["suspensions"] if p[2] == lost_addr]
+        verdicts = [eval_error_policies(default_node_policies(), e)
+                    for e in ends if e is not None]
+        # each suspension is the policy's verdict on the ending the worker
+        # saw, its duration the verdict's doubled per earlier failure and
+        # jittered (the first ending: no exponent); a redial, if the sync
+        # outlasts the first window, is refused and suspended the same way
+        if lost is None or not ends or len(verdicts) != len(ends) or \
+                len(susp) != len(ends) or any(
+                    p[3] != v.kind or p[5] != n or not (
+                        v.duration * 2 ** (n - 1) <= p[4]
+                        <= v.duration * 2 ** (n - 1) * (1 + w.jitter))
+                    for n, (p, v) in enumerate(zip(susp, verdicts), 1)) or \
+                w.states[lost_addr].fail_count != len(ends) or \
+                any(a != lost_addr for a, _e in rec["endings"]):
+            raise AssertionError(
+                f"diffusion leg 3: lost {lost}, connection endings "
+                f"{rec['endings']}, suspensions {susp} (default_node_"
+                f"policies: {verdicts}), fetched {rec['fetched_per_peer']}")
+        verdict = verdicts[0]
+        redials = [p for p in rec["dials"] if p[2] == lost_addr][1:]
+        rec.update(lost_addr=str(lost_addr), ending=repr(ends[0]),
+                   policy=[verdict.kind, verdict.duration],
+                   suspension=list(susp[0]), redials=len(redials),
+                   fetched_after=[a - b for a, b in zip(
+                       rec["fetched_per_peer"], lost["fetched_before"])])
+        if rec["fetched_after"][0] or not sum(rec["fetched_after"]):
+            raise AssertionError(f"diffusion leg 3: fetched after the loss "
+                                 f"{rec['fetched_after']}")
+        out["leg3"] = rec
+        log(f"diffusion leg 3: server 0 stopped at block "
+            f"{lost['at_block']} ({lost['at_s']:.3f} s); the follower at "
+            f"the tip and the forger's state_hash in {rec['wall_s']:.3f} s; "
+            f"fetched per peer before {lost['fetched_before']}, after "
+            f"{rec['fetched_after']}; the lost peer's ending "
+            f"{rec['ending']}, suspension {rec['suspension']}, redials "
+            f"{len(redials)}; watchdog events {len(rec['watchdog'])}; "
+            f"launches {rec['launches']}")
+        stop(rec)
+        for s in servers[1:]:
+            s["diffusion"].stop()
+            s["kernel"].stop()
+            for b in s["snocket"].accepted:
+                b.close()
+        await sim.sleep(0.05)
+
+    CS.validate_headers_batched = timed_batched
+    try:
+        t = time.perf_counter()
+        sim.io_run(main())
+        io_s = time.perf_counter() - t
+    finally:
+        CS.validate_headers_batched = real_batched
+        shutil.rmtree(sock_dir, ignore_errors=True)
+    for leg in ("leg1", "leg3"):
+        for key in ("fdb", "kernel", "diffusion", "mempool", "worker"):
+            out[leg].pop(key, None)
+        out[leg]["endings"] = [[str(a), repr(e)]
+                               for a, e in out[leg]["endings"]]
+        out[leg]["watchdog"] = len(out[leg]["watchdog"])
+        out[leg]["suspensions"] = [list(p) for p in out[leg]["suspensions"]]
+        out[leg]["dials"] = len(out[leg]["dials"])
+    l1, n1 = out["leg1"], node_sync
+    out["leg1"]["beside_phase_10"] = {
+        "tcp_3_peers_io_runtime": {k: l1[k] for k in ("wall_s",
+                                                      "blocks_per_s",
+                                                      "flushes")},
+        "sim_1_peer": {"wall_s": n1["seconds"],
+                       "blocks_per_s": n1["blocks_per_s"],
+                       "flushes": n1["flushes"]},
+        "flush_ms_p50": [l1["flush_ms"]["p50"], n1["flush_ms"]["p50"]],
+        "add_ms_p50": [l1["add_ms"]["p50"], n1["add_ms"]["p50"]]}
+    log(f"diffusion leg 1 beside phase 10's leg 1 (the same chain, one "
+        f"peer, the simulator): {l1['wall_s']:.3f} s against "
+        f"{n1['seconds']:.3f} s, {l1['flushes']} flushes against "
+        f"{n1['flushes']}")
+
+    # -- leg 4: the chaos ThreadNet on the card and on CppBackend
+    chaos = {}
+    real_backend = TN.OpensslBackend
+    for name, cfg in _chaos_configs().items():
+        runs = {}
+        for which in ("card", "cpp"):
+            backend = TorchBackend() if which == "card" else CppBackend()
+            TN.OpensslBackend = lambda: backend
+            K.reset_launches()
+            t = time.perf_counter()
+            try:
+                r = run_chaos_threadnet(cfg)
+            finally:
+                TN.OpensslBackend = real_backend
+            runs[which] = (r, time.perf_counter() - t, dict(K.LAUNCHES))
+        (rc, sc, lc), (rp, sp, _lp) = runs["card"], runs["cpp"]
+        count(lc)
+        same = {"fault_events": rc.fault_events == rp.fault_events,
+                "chains": [[p.encode() for p in c.points()]
+                           for c in rc.chains]
+                == [[p.encode() for p in c.points()] for c in rp.chains],
+                "fleet": json.dumps(rc.fleet, sort_keys=True)
+                == json.dumps(rp.fleet, sort_keys=True)}
+        bad = {w: _chaos_checks(name, r) for w, (r, _s, _l) in runs.items()}
+        missing = [k for k in MAIN_PATH if lc[k] == 0]
+        if not all(same.values()) or any(bad.values()) or missing:
+            first = next((i for i, (a, b) in enumerate(zip(rc.trace,
+                                                           rp.trace))
+                          if repr(a) != repr(b)), None)
+            raise AssertionError(
+                f"diffusion leg 4 {name}: card == CppBackend {same} (first "
+                f"diverging trace event {first}: "
+                f"{rc.trace[first] if first is not None else None} / "
+                f"{rp.trace[first] if first is not None else None}); "
+                f"failed checks {bad}; kernels not launched {missing}")
+        chaos[name] = {
+            "nodes": cfg.net.n_nodes, "slots": cfg.net.n_slots,
+            "heights": [c.head_block_no for c in rc.chains],
+            "fault_events": len(rc.fault_events),
+            "watchdog_events": len(rc.watchdog_events()),
+            "suspensions": len(rc.suspensions()),
+            "repromoted": len(rc.demoted_then_repromoted()),
+            "card_s": sc, "cpp_s": sp, "launches": lc}
+        log(f"diffusion leg 4 {name}: card == CppBackend (fault events, "
+            f"chains, fleet report), the tests' checks pass on both; "
+            f"{sc:.3f} s on the card, {sp:.3f} s on CppBackend; heights "
+            f"{chaos[name]['heights']}; launches {lc}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"diffusion phase: {phase_s:.3f} s")
+    return {"seconds": phase_s, "io_run_s": io_s, "slot_length_s": DIFF_SLOT_S,
+            "peers": DIFF_PEERS, "servers_open_s": out["servers_open_s"],
+            "clock_wait_s": out["clock_wait_s"],
+            "sync": out["leg1"], "wallet": out["leg2"],
+            "peer_lost": out["leg3"], "chaos": chaos,
             "launches": totals, "card": card}
 
 
@@ -2226,7 +2865,10 @@ def main() -> int:
     # -- 10. the node-to-node sync path -------------------------------------
     nd = node_phase(card, *replayed, tampered_chains)
 
-    # -- 11. the standalone batch-verify path -------------------------------
+    # -- 11. the diffusion slice ---------------------------------------------
+    df = diffusion_phase(card, *replayed, nd["sync"])
+
+    # -- 12. the standalone batch-verify path -------------------------------
     K.reset_launches()
     t = time.perf_counter()
     probe_rows = perf_probe.main(PROBE_ARGS)
@@ -2238,7 +2880,7 @@ def main() -> int:
         raise AssertionError(f"kernels not launched on the probe's path: "
                              f"{missing}")
 
-    # -- 12. the field microbenchmark path ----------------------------------
+    # -- 13. the field microbenchmark path ----------------------------------
     # every (lanes, op, k) its runs launch, and the first n - 3 lanes of
     # each lane count, exactly against the plain versions; a sample of the
     # JAX shape's lanes against Python integers
@@ -2340,7 +2982,7 @@ def main() -> int:
                              f"{not_dev}")
     rp["profiled"] = replay_profiled(*replayed[:2])
 
-    # -- 13. report -----------------------------------------------------------
+    # -- 14. report -----------------------------------------------------------
     serve_launches = sv["card"]["saturated"]["launches"]
     for entry in report:
         name = entry["name"]
@@ -2348,6 +2990,7 @@ def main() -> int:
         entry["serve_launches"] = serve_launches[name]
         entry["chaindb_launches"] = cd["launches"][name]
         entry["node_launches"] = nd["launches"][name]
+        entry["diffusion_launches"] = df["launches"][name]
         entry["sharded_launches"] = (sh["batch_verify"]["launches"][name]
                                      if name == "ed25519_verify"
                                      else sh["launches"][0][name])
@@ -2381,6 +3024,7 @@ def main() -> int:
     print(json.dumps({"sharded": sh}))
     print(json.dumps({"chaindb": cd}))
     print(json.dumps({"node": nd}))
+    print(json.dumps({"diffusion": df}))
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {

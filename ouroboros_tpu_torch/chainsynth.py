@@ -136,6 +136,47 @@ def forge_shelley(blocks: int, txs_per_block: int = 2, pools: int = 2,
     return ext, out, state, variant
 
 
+def wallet_txs(pools, ledger_state, n_valid: int,
+               n_flipped: int = 0) -> list:
+    """Transactions a wallet submits at a tip whose ledger state is
+    `ledger_state`, made as forge_shelley makes a block's: `n_valid`
+    spends, the pool owners taken in turn, each spending its owner's
+    oldest unspent output (first the owner's output in `ledger_state`,
+    then the output of the owner's previous transaction) back to the
+    owner, witnessed by the owner's key; then `n_flipped` more, each
+    spending its owner's oldest unspent output with one byte of its
+    witness signature flipped (byte 7 t mod 64 of the t-th), so that
+    only the witness check rejects it.  `pools` is `shelley_setup`'s pool
+    list for the chain's parameters."""
+    utxo = ledger_state.utxo_dict()
+    spendable = {i: sorted((txid, ix, amount) for (txid, ix), (addr, amount,
+                                                              _a)
+                           in utxo.items() if addr == p["addr"])
+                 for i, p in enumerate(pools)}
+    out = []
+    for t in range(n_valid):
+        owner = t % len(pools)
+        txid, ix, amount = spendable[owner].pop(0)
+        op = pools[owner]
+        tx = make_shelley_tx(inputs=[(txid, ix)],
+                             outputs=[(op["addr"], amount)], certs=[],
+                             signing_keys=[op["keys"].addr_sk])
+        spendable[owner].append((tx.txid, 0, amount))
+        out.append(tx)
+    for t in range(n_flipped):
+        owner = t % len(pools)
+        txid, ix, amount = spendable[owner][0]
+        op = pools[owner]
+        tx = make_shelley_tx(inputs=[(txid, ix)],
+                             outputs=[(op["addr"], amount)], certs=[],
+                             signing_keys=[op["keys"].addr_sk])
+        vk, sig = tx.witnesses[0]
+        j = 7 * t % 64
+        bad = sig[:j] + bytes([sig[j] ^ 1]) + sig[j + 1:]
+        out.append(replace(tx, witnesses=((vk, bad),)))
+    return out
+
+
 # -- the chain database's on-disk state (storage/chaindb.py) ------------------
 
 def shelley_block_decode(raw: bytes) -> ProtocolBlock:

@@ -7,7 +7,9 @@ ouroboros-network-framework, ouroboros-network.
 Ported from `ouroboros_tpu/network/__init__.py` (the port imports nothing of
 the JAX package): the channels (`channel.py`), typed sessions (`typed.py`),
 the mux (`mux.py`), DeltaQ (`deltaq.py`), the node-to-node versions
-(`node_to_node.py`) and six mini-protocols under `protocols/`. Not ported
-yet: diffusion, subscription, peer selection, the error policy, the snocket,
-socket bearer and CDDL checks.
+(`node_to_node.py`), the mini-protocols under `protocols/`, and the
+diffusion layer's error policy (`error_policy.py`), snockets
+(`snocket.py`, `socket_bearer.py`), subscription workers
+(`subscription.py`) and peer-selection governor (`peer_selection.py`).
+Not ported yet: the CDDL checks (`cddl.py`).
 """

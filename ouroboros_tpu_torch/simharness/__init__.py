@@ -15,10 +15,8 @@ The module-level functions dispatch to whichever runtime is active.
 
 Ported from `ouroboros_tpu/simharness/__init__.py` (the port imports
 nothing of the JAX package): the simulator (`core.py`), STM (`stm.py`),
-the IO runtime (`io_runtime.py`) and ouro-race (`race.py`) are copied
-whole.  Left out: `faults.py` (FaultPlan, FaultyChannel and the other
-fault injectors), which waits for the diffusion slice with the chaos
-ThreadNet that drives it.
+the IO runtime (`io_runtime.py`), ouro-race (`race.py`) and the fault
+injectors (`faults.py`) are copied whole.
 """
 from typing import Any
 
@@ -35,6 +33,9 @@ from .core import (
     trace_event as _sim_trace_event,
     yield_ as _sim_yield,
 )
+from .faults import (
+    FaultPlan, FaultSpec, FaultyBearer, FaultyChannel, LinkDown, Partition,
+)
 from .io_runtime import IoAsync, IoRuntime, io_run
 from .race import (
     Race, RaceDetector, RaceReport, ScheduleController, explore_races,
@@ -50,6 +51,8 @@ __all__ = [
     "now", "run", "run_trace", "sleep", "spawn", "timeout", "trace_event",
     "yield_",
     "Retry", "TBQueue", "TMVar", "TQueue", "TVar", "Tx", "retry",
+    "FaultPlan", "FaultSpec", "FaultyBearer", "FaultyChannel", "LinkDown",
+    "Partition",
 ]
 
 

@@ -14,10 +14,8 @@ maps to ThreadNetResult checks: convergence, chain growth, no unexpected
 thread failures.
 
 Ported from `ouroboros_tpu/testing/threadnet.py` (the port imports nothing
-of the JAX package). Copied up to `run_threadnet`. Left out: the chaos
-section (`ChaosConfig`, `run_chaos_threadnet` and their policies), which
-imports the diffusion layer, the error policy and the propagation timelines;
-the port has none of them yet.
+of the JAX package). Copied whole, with the chaos section
+(`ChaosConfig`, `run_chaos_threadnet` and their policies).
 """
 from __future__ import annotations
 
@@ -390,4 +388,301 @@ def run_threadnet(cfg: ThreadNetConfig) -> ThreadNetResult:
             kern.stop()
 
     sim.run(main(), seed=cfg.seed)
+    return result
+
+
+# ---------------------------------------------------------------------------
+# Chaos ThreadNet — the Praos network under a seeded FaultPlan
+# ---------------------------------------------------------------------------
+#
+# Reference shape: the io-sim fault exploration of the reference test suites
+# (attenuated bearers / AbsBearerInfo in ouroboros-network-framework's sim
+# tests) composed with ThreadNet's prop_general checks.  Nodes are wired
+# through diffusion.py's subscription layer (NOT the static mesh), so a
+# connection killed by a fault or watchdog is *suspended* by the error
+# policy (demotion) and *redialled* after backoff (re-promotion) — the
+# recovery loop this harness exists to exercise.
+
+from ..network.error_policy import (          # noqa: E402  (section import)
+    default_node_policies,
+)
+from ..node.diffusion import SimNetwork, run_sim_diffusion  # noqa: E402
+from ..node.watchdog import NodeTimeLimits    # noqa: E402
+from ..observe import netmetrics as _netmetrics             # noqa: E402
+from ..observe.propagation import FleetTelemetry            # noqa: E402
+from ..simharness import FaultPlan, FaultSpec, Partition    # noqa: E402
+
+
+def chaos_error_policies(scale: float = 1.0) -> list:
+    """The REAL policy set (default_node_policies) with durations scaled
+    to chaos-sim time — the production 200 s/60 s windows would outlast a
+    40-slot run."""
+    return default_node_policies(violation=8.0 * scale,
+                                 transport=4.0 * scale,
+                                 unknown=6.0 * scale)
+
+
+def chaos_time_limits() -> NodeTimeLimits:
+    """Watchdog limits scaled to the chaos net's 1 s slots (same ratios as
+    the production defaults in node/watchdog.py)."""
+    # must_reply stays ~7x the expected block interval (reference ratio:
+    # 135 s against ~20 s blocks) — tighter and a healthy-but-quiet
+    # producer gets spuriously killed during the settle window
+    return NodeTimeLimits(
+        chain_sync_short=3.0, chain_sync_must_reply=20.0,
+        keep_alive_timeout=3.0, block_fetch_busy=6.0,
+        fetch_deadline_floor=1.5, fetch_deadline_mult=4.0,
+        handshake_timeout=3.0)
+
+
+@dataclass
+class ChaosConfig:
+    """One chaos run: a ThreadNetConfig + the hostility applied to it.
+
+    The FaultSpec/Partition fields (not a FaultPlan instance) keep the
+    config pure data — run_chaos_threadnet builds a FRESH plan per run, so
+    replaying the same config replays the identical fault schedule."""
+    net: ThreadNetConfig = field(default_factory=ThreadNetConfig)
+    spec: FaultSpec = field(default_factory=FaultSpec)
+    partitions: tuple = ()               # Partition over node labels
+    base_backoff: float = 2.0
+    keepalive_interval: float = 2.0
+    settle_slots: int = 4
+    time_limits: NodeTimeLimits = field(default_factory=chaos_time_limits)
+    # slot after which per-message hostility stops (None = hostile through
+    # the settle window too).  Default: faults run for the measured
+    # n_slots, then the settle window is clean — the ThreadNet
+    # partition-heals-then-net-converges shape, so the final-chain
+    # common-prefix check judges recovery, not mid-fault luck.
+    fault_until_slot: Optional[int] = -1     # -1 -> net.n_slots
+    # multiplier on chaos_error_policies' suspension windows: the max
+    # escalated backoff must fit inside the settle window or a peer
+    # suspended in the hostile tail never rejoins before the snapshot
+    error_scale: float = 1.0
+
+
+@dataclass
+class ChaosResult(ThreadNetResult):
+    """ThreadNetResult + the observability a chaos run is judged on."""
+    seed: int = 0
+    fault_events: list = field(default_factory=list)   # plan.events
+    workers: list = field(default_factory=list)        # SubscriptionWorkers
+    race_report: Optional[object] = None   # RaceReport under explore=K
+    # the merged FleetTelemetry report: adoption quantiles,
+    # per-edge delivery latency, partition healing, per-peer mux bytes —
+    # byte-identical (sort_keys JSON) across replays of one seed
+    fleet: Optional[dict] = None
+
+    # -- trace views ---------------------------------------------------------
+    def _events(self, label: str) -> list:
+        # trace_event(payload, label) records the label in SimEvent.kind
+        # (the `label` field is the emitting thread's, always "user" here)
+        return [e for e in self.trace if e.kind == label]
+
+    def watchdog_events(self) -> list:
+        """Every per-state timeout + the kills it caused."""
+        return self._events("watchdog")
+
+    def suspensions(self) -> list:
+        """(time, worker, addr, kind, duration, fail_count) demotions."""
+        return [(e.time, e.payload[0], *e.payload[2:])
+                for e in self._events("subscription")
+                if e.payload[1] == "suspend"]
+
+    def demoted_then_repromoted(self) -> list:
+        """Addresses that were suspended (demoted) and later redialled
+        (re-promoted) by the subscription layer — the recovery loop's
+        end-to-end evidence, readable from the trace alone."""
+        suspended_at: dict = {}
+        recovered = []
+        for e in self._events("subscription"):
+            worker, kind = e.payload[0], e.payload[1]
+            addr = e.payload[2]
+            key = (worker, addr)
+            if kind == "suspend":
+                suspended_at.setdefault(key, e.time)
+            elif kind == "dial" and key in suspended_at \
+                    and e.time > suspended_at[key] and addr not in recovered:
+                recovered.append(addr)
+        return recovered
+
+    def trace_tail(self, n: int = 40) -> str:
+        """The reproduction blurb chaos test failures print: seed + the
+        last n sim-trace events."""
+        tail = "\n".join(repr(e) for e in self.trace[-n:])
+        return (f"fault plan seed={self.seed} — rerun with this seed to "
+                f"reproduce; sim trace tail:\n{tail}")
+
+
+# TVar labels whose races are tolerated during chaos exploration, with
+# the justification readable next to the suppression (the ouro-lint
+# baseline discipline applied to dynamic findings).  Patterns are
+# fnmatch globs over the TVar label.
+#
+# Everything here is an ORDER-INSENSITIVE access pattern: in the
+# cooperative runtime a sync block is atomic regardless of schedule, so
+# an unordered pair is only a bug when the two orders produce different
+# outcomes.  Monotone counters, one-way latches and re-validated peeks
+# commute; anything NOT matching these globs blocks the exploration
+# gate (tests/test_races.py).
+CHAOS_RACE_TOLERATED = {
+    "current-slot": "monotonic slot counter: readers peek the current "
+                    "slot and tolerate being one tick stale by design "
+                    "(the reference reads the slot clock non-atomically "
+                    "too); torn reads are impossible in the cooperative "
+                    "sim",
+    "*-fetch-wakeup": "edge-triggered poke counter: concurrent pokes "
+                      "coalesce and the fetch-logic loop re-reads the "
+                      "full decision state after every wake, so a lost "
+                      "increment only costs one extra (idempotent) "
+                      "decision pass",
+    "*-chain-version": "monotonic version counter poked from the ChainDB "
+                       "writer thread; followers re-validate against the "
+                       "real chain after waking, so stale peeks are "
+                       "self-healing",
+    "mempool-version": "same monotone version-counter shape as "
+                       "chain-version: watchers re-snapshot the mempool "
+                       "after every wake",
+    "chaindb-add-queue": "wake counter for the single add-block writer "
+                         "thread: the runner drains the whole queue "
+                         "after every wake and re-checks before "
+                         "blocking, so a coalesced increment is "
+                         "absorbed by the drain loop",
+    "fetch-req-*": "block_fetch._queued's documented non-transactional "
+                   "peek of the per-peer request queue: the decision "
+                   "loop re-runs on every fetch-wakeup poke, so a "
+                   "stale snapshot costs one extra decision pass, "
+                   "never a lost request",
+    "*.closed": "mux teardown latch: one-way False->True flips commute "
+                "(concurrent stop() calls are idempotent) and readers "
+                "racing the flip either see open and get woken by the "
+                "notify, or see closed",
+    "*.chanver": "mux ingress version counter: monotone, bumped per "
+                 "delivered SDU; channel readers re-check decodability "
+                 "under STM after every wake",
+}
+
+
+def _chaos_setup(cfg: ChaosConfig):
+    """Fresh per-run state + the program coroutine factory.  Exploration
+    re-runs the SAME config under perturbed schedules, and every schedule
+    must get its own kernels/plan/result — sim programs are not
+    re-runnable."""
+    factory = PraosNetworkFactory(cfg.net)
+    net = cfg.net
+    until_slot = net.n_slots if cfg.fault_until_slot == -1 \
+        else cfg.fault_until_slot
+    plan = FaultPlan(net.seed, cfg.spec, cfg.partitions,
+                     until=None if until_slot is None
+                     else until_slot * net.slot_length)
+    result = ChaosResult([], [], factory.keys, seed=net.seed)
+
+    def neighbors(i: int) -> list:
+        if net.topology == "mesh":
+            return [j for j in range(net.n_nodes) if j != i]
+        if net.topology == "ring":
+            return sorted({(i - 1) % net.n_nodes, (i + 1) % net.n_nodes}
+                          - {i})
+        if net.topology == "line":
+            return [j for j in (i - 1, i + 1) if 0 <= j < net.n_nodes]
+        raise ValueError(net.topology)
+
+    async def main():
+        # fresh fleet-accounting scope: MuxIO totals born in THIS run are
+        # what the fleet report folds, so two replays of one seed report
+        # identical per-peer bytes
+        _netmetrics.reset_run_scope()
+        fleet = FleetTelemetry(partitions=cfg.partitions)
+        network = SimNetwork(
+            link_delay=net.link_delay * net.slot_length,
+            fault_plan=plan)
+        kernels = [factory.make_node(i) for i in range(net.n_nodes)]
+        # every address must be listening before any worker dials, or the
+        # startup order would masquerade as connection failures
+        for i, kern in enumerate(kernels):
+            kern.propagation = fleet.tracker(kern.label)
+            network.listen(f"addr{i}", kern)
+        worker_threads = []
+        for i, kern in enumerate(kernels):
+            kern.time_limits = cfg.time_limits
+            kern.keepalive_interval = cfg.keepalive_interval
+            kern.start()
+            d = run_sim_diffusion(
+                kern, network, f"addr{i}",
+                ip_targets=[f"addr{j}" for j in neighbors(i)],
+                valency=len(neighbors(i)),
+                error_policies=chaos_error_policies(cfg.error_scale),
+                base_backoff=cfg.base_backoff, seed=net.seed)
+            result.workers.extend(d.workers)
+            worker_threads.extend(d.threads)
+        await sim.sleep(net.n_slots * net.slot_length
+                        + cfg.settle_slots * net.slot_length)
+        for kern in kernels:
+            result.chains.append(kern.chain_db.current_chain.copy())
+            result.ledgers.append(kern.chain_db.current_ledger)
+        for t in worker_threads:
+            try:
+                t.poll()
+            except sim.AsyncCancelled:
+                pass
+            except BaseException as e:   # a THROW verdict or worker bug
+                result.failures.append(("subscription", t.label, e))
+        result.fleet = fleet.report()
+        for kern in kernels:
+            kern.stop()
+
+    return plan, result, main
+
+
+def run_chaos_threadnet(cfg: ChaosConfig, explore: int = 0,
+                        tolerate=None) -> ChaosResult:
+    """Run the Praos network under cfg's FaultPlan, wired through the
+    subscription/diffusion layer so faulted peers are demoted (error-policy
+    suspension) and re-promoted (redial) instead of staying dead.
+
+    Deterministic end to end: the plan, the scheduler, the subscription
+    jitter and every watchdog all derive from cfg.net.seed, so two runs of
+    the same config produce byte-identical sim traces.
+
+    explore=K additionally attaches the happens-before race detector
+    (simharness/race.py) to the measured run — which IS exploration
+    schedule 0, the production FIFO schedule — and re-runs the same
+    config under K-1 further seeded schedule perturbations, returning
+    the RaceReport on ``result.race_report``.  `tolerate` overrides the
+    default CHAOS_RACE_TOLERATED label globs (each documented above)."""
+    plan, result, main = _chaos_setup(cfg)
+    det0 = sim.RaceDetector(schedule_index=0) if explore > 0 else None
+    measured = sim.Sim(seed=cfg.net.seed, collect_trace=True, race=det0)
+    try:
+        measured.run(main())
+    except BaseException as e:
+        # crash-proof evidence: when the flight recorder is
+        # armed, a failing chaos run dumps the sim trace tail alongside
+        # whatever spans/metric deltas the ring already holds.  All
+        # timestamps are VIRTUAL sim time, so the same seed dumps
+        # byte-identical files on every replay of the failure.
+        from ..observe import flight as _flight
+        if _flight.FLIGHT.armed:
+            # the sim has already exited (its runtime is detached), so
+            # each event carries its OWN virtual time — stamping with
+            # monotonic_now() here would leak wall clock into the dump
+            for ev in getattr(measured, "_trace", [])[-256:]:
+                _flight.FLIGHT.note(ev, t=ev.time)
+            _flight.FLIGHT.dump_on_failure(
+                f"chaos threadnet seed={cfg.net.seed}: {e!r}")
+        raise
+    result.trace = measured._trace
+    result.fault_events = list(plan.events)
+    if explore > 0:
+        def make_program():
+            _plan, _result, fresh_main = _chaos_setup(cfg)
+            return fresh_main()
+        controller = sim.ScheduleController(
+            make_program, k=explore, seed=cfg.net.seed,
+            tolerate=tuple(CHAOS_RACE_TOLERATED
+                           if tolerate is None else tolerate))
+        # the measured FIFO run doubles as schedule 0: re-running it
+        # would be byte-identical wasted wall-clock
+        result.race_report = controller.explore(pre_collected=[det0],
+                                                start=1)
     return result

@@ -371,3 +371,80 @@ def test_two_node_sync_on_the_card(dev):
             == state.ledger.state_hash())
     assert all(K.LAUNCHES[k] > 0 for k in ("ed25519_split", "vrf_verify",
                                             "gamma8", "kes_hash"))
+
+
+def test_two_peer_sync_over_tcp_on_the_card(dev):
+    """chip_smoke.py's diffusion phase at a small size: a 40-block Shelley
+    chain (KES depth 3) held by two servers, each behind
+    `run_data_diffusion` on a loopback TCP port, and a fresh follower on
+    TorchBackend that subscribes to both (initiator-only) under the
+    real-clock IO runtime, its slots 0.05 s so that its clock passes the
+    chain's last slot before it starts: the follower reaches the tip and
+    the forger's state hash, its header flushes and ChainDB adds through
+    the four window kernels."""
+    from ouroboros_tpu_torch import chainsynth
+    from ouroboros_tpu_torch import simharness as sim
+    from ouroboros_tpu_torch.consensus.headers import (ProtocolBlock,
+                                                       ProtocolHeader)
+    from ouroboros_tpu_torch.crypto.backend import GLOBAL_BETA_CACHE
+    from ouroboros_tpu_torch.crypto.cpp_backend import CppBackend
+    from ouroboros_tpu_torch.eras.shelley import ShelleyTx
+    from ouroboros_tpu_torch.network.snocket import TcpSnocket
+    from ouroboros_tpu_torch.node import BlockchainTime, NodeKernel
+    from ouroboros_tpu_torch.node.diffusion import (
+        INITIATOR_ONLY, DiffusionArguments, run_data_diffusion)
+    from ouroboros_tpu_torch.storage import MockFS
+    slot_s = 0.05
+    ext, blocks, state = chainsynth.forge_shelley(40, epoch_length=10,
+                                                  kes_depth=3)
+    server_dbs = []
+    for _ in range(2):
+        fs = MockFS()
+        chainsynth.write_chaindb(fs, blocks, len(blocks))
+        server_dbs.append(chainsynth.open_chaindb(fs, ext, CppBackend()))
+    GLOBAL_BETA_CACHE.clear()
+    backend = TorchBackend(device=dev)
+    follower_db = chainsynth.open_chaindb(MockFS(), ext, backend)
+
+    def kernel(db, label, be):
+        return NodeKernel(
+            db, ext.ledger, None, BlockchainTime(slot_s), label=label,
+            backend=be, header_decode=ProtocolHeader.decode,
+            block_decode_obj=lambda o: ProtocolBlock.decode(
+                o, tx_decode=ShelleyTx.decode),
+            tx_decode=ShelleyTx.decode)
+
+    async def main():
+        snk = TcpSnocket()
+        servers, addrs, ds = [], [], []
+        for i, db in enumerate(server_dbs):
+            k = kernel(db, f"server{i}", None)
+            k.start()
+            d = await run_data_diffusion(
+                k, DiffusionArguments(addresses=[("127.0.0.1", 0)]), snk)
+            servers.append(k)
+            ds.append(d)
+            addrs.append(d.listeners[0].addr)
+        await sim.sleep((blocks[-1].slot + 2) * slot_s - sim.now())
+        follower = kernel(follower_db, "follower", backend)
+        follower.start()
+        ds.append(await run_data_diffusion(
+            follower, DiffusionArguments(ip_producers=addrs, ip_valency=2,
+                                         mode=INITIATOR_ONLY), snk))
+        t0 = sim.now()
+        while follower_db.tip_point() != server_dbs[0].tip_point():
+            assert sim.now() - t0 < 120, follower_db.tip_point()
+            await sim.sleep(0.01)
+        for k in servers + [follower]:
+            k.stop()
+        for d in ds:
+            d.stop()
+
+    K.reset_launches()
+    sim.io_run(main())
+    assert follower_db.tip_point().hash == blocks[-1].hash
+    assert not follower_db.invalid
+    assert (follower_db.current_ledger.ledger.state_hash()
+            == state.ledger.state_hash())
+    assert all(K.LAUNCHES[k] > 0 for k in ("ed25519_split", "vrf_verify",
+                                            "gamma8", "kes_hash"))

@@ -856,49 +856,20 @@ def test_messages_encode_to_the_jax_packages_bytes(name, seed):
 
 # -- tests/test_races.py: the keep-alive watchdog under exploration ----------
 
-class _DropWrites:
-    """A mux bearer whose writes are all lost (a stalled responder): the
-    port has no FaultPlan yet, so this stands for the reference's
-    `FaultPlan(spec=FaultSpec(drop_prob=1.0)).wrap_bearer`."""
-
-    def __init__(self, inner):
-        self._inner = inner
-
-    @property
-    def sdu_size(self) -> int:
-        return self._inner.sdu_size
-
-    async def write(self, sdu) -> None:
-        return None
-
-    async def read(self):
-        return await self._inner.read()
-
-
-# tests/test_races.py tolerates these globs (the reference's
-# CHAOS_RACE_TOLERATED, whose chaos section is not ported yet): the two
-# that a mux teardown touches, with their justification
-_MUX_RACE_TOLERATED = {
-    "*.closed": "mux teardown latch: one-way False->True flips commute "
-                "(concurrent stop() calls are idempotent) and readers "
-                "racing the flip either see open and get woken by the "
-                "notify, or see closed",
-    "*.chanver": "mux ingress version counter: monotone, bumped per "
-                 "delivered SDU; channel readers re-check decodability "
-                 "under STM after every wake",
-}
-
-
 def test_keepalive_watchdog_sim_exploration_race_clean():
     """The keepalive-stall kill path under perturbed schedules: the
     timeout fires on every schedule and the mux teardown exposes no
     race."""
     from ouroboros_tpu_torch.node.watchdog import KeepAliveTimeout
+    from ouroboros_tpu_torch.simharness import FaultPlan, FaultSpec
+    from ouroboros_tpu_torch.testing.threadnet import CHAOS_RACE_TOLERATED
 
     def make():
+        plan = FaultPlan(seed=5, spec=FaultSpec(drop_prob=1.0))
+
         async def main():
             ba, bb = bearer_pair(sdu_size=1024)
-            bb = _DropWrites(bb)
+            bb = plan.wrap_bearer(bb, "srv", "cli")
             mux_a, mux_b = Mux(ba, "cli"), Mux(bb, "srv")
             ka_a = CodecChannel(mux_a.channel(8, INITIATOR), keepalive.CODEC)
             ka_b = CodecChannel(mux_b.channel(8, RESPONDER), keepalive.CODEC)
@@ -926,6 +897,6 @@ def test_keepalive_watchdog_sim_exploration_race_clean():
         return main()
 
     rep = sim.explore_races(make, k=4, seed=5,
-                            tolerate=tuple(_MUX_RACE_TOLERATED))
+                            tolerate=tuple(CHAOS_RACE_TOLERATED))
     assert rep.failures == [], rep.render()
     assert rep.races == [], rep.render()

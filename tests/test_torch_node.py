@@ -1053,3 +1053,55 @@ def test_a_tpraos_node_at_genesis_judges_a_candidate():
     assert j_db.add_block(j_blocks[0]).kind == "extended"
     assert p_kern.plausible_candidate(p_frag) == \
         j_kern.plausible_candidate(j_frag) is True
+
+
+def _faulted_pair(pkg: str) -> dict:
+    """In package `pkg`: two forging ThreadNet nodes wired by
+    `connect_nodes` under a seeded FaultPlan (jitter, drops and stalls on
+    every bearer); returns the plan's events, the chains and the thread
+    failures."""
+    s = importlib.import_module(f"{pkg}.simharness")
+    tn = importlib.import_module(f"{pkg}.testing.threadnet")
+    node = importlib.import_module(f"{pkg}.node")
+    plan = s.FaultPlan(3, s.FaultSpec(jitter=0.05, drop_prob=0.002,
+                                      stall_prob=0.002, stall_for=1.0))
+    fac = tn.PraosNetworkFactory(tn.ThreadNetConfig(n_nodes=2, k=10, f=0.5,
+                                                    seed=3))
+    out = {}
+
+    async def main():
+        a, b = fac.make_node(0), fac.make_node(1)
+        a.start()
+        b.start()
+        node.connect_nodes(a, b, delay=0.05, fault_plan=plan)
+        await s.sleep(20.0)
+        out["chains"] = [[p.encode() for p in k.chain_db.current_chain
+                          .points()] for k in (a, b)]
+        out["failures"] = []
+        for k in (a, b):
+            for t in k._threads:
+                if not t.done:
+                    continue
+                try:
+                    t.poll()
+                except s.AsyncCancelled:
+                    pass
+                except BaseException as e:
+                    out["failures"].append((k.label, t.label,
+                                            type(e).__name__))
+            k.stop()
+
+    s.run(main(), seed=3)
+    out["events"] = list(plan.events)
+    return out
+
+
+def test_connect_nodes_under_a_fault_plan_equals_the_jax_packages():
+    """`connect_nodes(..., fault_plan=...)` with the port's FaultPlan: the
+    same seed and spec give the JAX package's fault events, chains and
+    thread failures."""
+    want = _faulted_pair("ouroboros_tpu")
+    got = _faulted_pair("ouroboros_tpu_torch")
+    assert {kind for _t, kind, _e in want["events"]} >= {"jitter"}
+    assert min(len(c) for c in want["chains"]) > 3
+    assert got == want
