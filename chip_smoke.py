@@ -174,13 +174,34 @@ the CUDA toolkit.  Phases:
    tests/test_netobs.py's `_fleet_config()`) in the simulator, each with
    every node on one fresh TorchBackend and again on CppBackend: equal
    fault events, chains and fleet reports, the tests' own checks on both,
-   the four window kernels launched in each card run.  (Phases 11-13 of
-   earlier versions of this script are 12-14 here);
-12. the standalone batch-verify path: `perf_probe --old` at 4096 Ed25519
+   the four window kernels launched in each card run;
+12. the protocols and tools (network/cddl.py, the TxSubmission2, Hello,
+   LocalTxMonitor and TipSample protocols, graft_entry.py, ping.py,
+   obsreport.py): the compile-probe entry's r3 verify form, 128 x True
+   on its own batch, and on a second batch of the same key with eight
+   lanes tampered `ed25519_ref`'s verdicts and the `ed25519_verify`
+   kernel's, its time beside the kernel's; a Mempool over a fresh
+   TorchBackend admitting 512 wallet transactions and rejecting 64 with
+   a flipped witness (ed25519_split launched), CppBackend's verdicts,
+   relayed over a Mux bearer pair by TxSubmission2 (Hello first) into a
+   second card Mempool in the same order with CppBackend's verdicts,
+   monitored by LocalTxMonitor byte for byte, and TipSample's tips from
+   phase 11's follower's ChainDB, each on its chain; phase 11's server 0
+   on a loopback TCP port, `python -m ouroboros_tpu_torch.ping` against
+   it (exit 0, the version and five RTTs), a fresh follower on a card
+   TorchBackend syncing the first 512 blocks through a bearer tap, the
+   four window kernels launched, every Handshake, ChainSync, BlockFetch
+   and TxSubmission message it carried matching the reference's grammar
+   (`cddl.grammar`), none mismatched; the port's ScrapeServer scraped
+   meanwhile; obsreport's renders of phase 11's fleet report, the scrape
+   and phase 8's MULTICHIP_OBS line, each with its section headers; ~30
+   s.  (Phases 12-14 of the previous version of this script are 13-15
+   here);
+13. the standalone batch-verify path: `perf_probe --old` at 4096 Ed25519
    and 2048 VRF lanes (split and full Ed25519 verify, VRF verify, betas;
    each row asserts that every lane verifies), where ed25519_verify and
    the three kernels the probe drives must launch;
-13. the field microbenchmark path: field_chain, field_chain_lp (mul and
+14. the field microbenchmark path: field_chain, field_chain_lp (mul and
    sqr), point_chain and point_chain_x4 each held exactly against its
    plain version on the card for every operation at both of its chain
    lengths, at every lane count the microbenchmark runs (4096, the JAX
@@ -199,7 +220,7 @@ the CUDA toolkit.  Phases:
    host time.  After them one more replay of phase 5's valid chain runs
    under torch.profiler for the card's busy seconds: its some hundred
    thousand traced kernels could reach a later trace, so it comes last;
-14. a `main_path` JSON line, a `microbench_field` JSON line (the
+15. a `main_path` JSON line, a `microbench_field` JSON line (the
    per-operation rows at both lane counts), a `replay` JSON line
    (blocks/s, proofs/s, the producer's host_seq and submit seconds with
    the fill and fold inside it, and the consumer's drain seconds, per
@@ -238,7 +259,13 @@ the CUDA toolkit.  Phases:
    ms and launches; the lost peer's leg: seconds, fetched per peer
    before and after, the suspension and redials; each chaos
    configuration's seconds on both backends and launches; the phase's
-   launches; the card), a `kernels` JSON line
+   launches; the card), a `protocols` JSON line (the entry's prepare and
+   call seconds, the r3 form's and ed25519_verify's ms on 128 lanes; the
+   mempool leg's admitted, rejected, seconds on the card and on
+   CppBackend, relayed, monitored and the sampled tips; the ping's
+   result, the sync's seconds and block, the tap's SDUs and messages a
+   protocol, the CDDL mismatches (0); the renders; the phase's launches;
+   the card), a `kernels` JSON line
    (each
    kernel's launches are those of its path: the main path's, the
    probe's for ed25519_verify, the microbenchmark's for the chains, and
@@ -248,8 +275,9 @@ the CUDA toolkit.  Phases:
    saturated leg as `serve_launches`, and in the first sharded replay
    (for ed25519_verify, the sharded batch verify) as
    `sharded_launches`, in the chain database phase as
-   `chaindb_launches`, in the node phase as `node_launches`, and in the
-   diffusion phase as `diffusion_launches`; its
+   `chaindb_launches`, in the node phase as `node_launches`, in the
+   diffusion phase as `diffusion_launches`, and in the protocols phase
+   as `protocols_launches`; its
    launch shape as threads_per_lane and block; kes_hash's 65536-lane
    row under `wide`), the card line, and as
    the last line {"ok": true, "device": {...}}.
@@ -372,6 +400,17 @@ DIFF_POLL_S = 0.01
 DIFF_LIMIT_S = 300.0
 DIFF_LOSE_AT = 1000          # leg 3: a server stopped once the tip passes it
 WALLET_VALID, WALLET_FLIPPED = 64, 8
+
+# the protocols and tools phase (12)
+PROTO_VALID, PROTO_FLIPPED = 512, 64   # leg 2's wallet transactions
+PROTO_SYNC_BLOCKS = 512                # leg 3: the prefix synced over a tap
+PING_COUNT = 5
+TXSUBMISSION2_WINDOW = 10
+LOCAL_TXMONITOR_NUM = 9                # node-to-client numbering
+TIPSAMPLE_NUM = 10
+PROTO_TX_OFFERED = 8                   # leg 3: the follower's mempool
+TIP_REQUESTS = ((8, 0), (16, 1000), (4, 2500))   # (n, from slot)
+PROTO_LIMIT_S = 120.0
 
 
 def log(*a):
@@ -1103,7 +1142,8 @@ def sharded_phase(card: str, ext, chain, want_hash: bytes, chains: dict,
         "padding": [r["padding"] for r in runs],
         "tampered": tampered, "windows": window_rows,
         "batch_verify": {"lanes": len(vks), "launches": bv_launches},
-        "multichip_obs": obs, "mesh_scaling": scaling, "card": card}
+        "multichip_obs": obs, "mesh_scaling": scaling, "card": card,
+        "multichip_log": buf.getvalue()}
 
 
 def _pct(xs, q):
@@ -2405,6 +2445,7 @@ def diffusion_phase(card: str, ext, chain, want_hash: bytes,
     finally:
         CS.validate_headers_batched = real_batched
         shutil.rmtree(sock_dir, ignore_errors=True)
+    follower_db = out["leg1"]["fdb"]
     for leg in ("leg1", "leg3"):
         for key in ("fdb", "kernel", "diffusion", "mempool", "worker"):
             out[leg].pop(key, None)
@@ -2429,7 +2470,7 @@ def diffusion_phase(card: str, ext, chain, want_hash: bytes,
         f"{n1['flushes']}")
 
     # -- leg 4: the chaos ThreadNet on the card and on CppBackend
-    chaos = {}
+    chaos, fleets = {}, {}
     real_backend = TN.OpensslBackend
     for name, cfg in _chaos_configs().items():
         runs = {}
@@ -2445,6 +2486,7 @@ def diffusion_phase(card: str, ext, chain, want_hash: bytes,
             runs[which] = (r, time.perf_counter() - t, dict(K.LAUNCHES))
         (rc, sc, lc), (rp, sp, _lp) = runs["card"], runs["cpp"]
         count(lc)
+        fleets[name] = rc.fleet
         same = {"fault_events": rc.fault_events == rp.fault_events,
                 "chains": [[p.encode() for p in c.points()]
                            for c in rc.chains]
@@ -2482,7 +2524,615 @@ def diffusion_phase(card: str, ext, chain, want_hash: bytes,
             "clock_wait_s": out["clock_wait_s"],
             "sync": out["leg1"], "wallet": out["leg2"],
             "peer_lost": out["leg3"], "chaos": chaos,
+            "launches": totals, "card": card,
+            "follower_db": follower_db, "fleets": fleets}
+
+
+def _tx_bytes(tx) -> bytes:
+    from ouroboros_tpu_torch.utils import cbor
+    return cbor.dumps(tx.encode())
+
+
+class _BytesReader:
+    """A Mempool reader whose lookup gives a transaction's wire bytes, as
+    TxSubmission's outbound side sends them (node/tx_submission.py)."""
+
+    def __init__(self, reader):
+        self.reader = reader
+
+    def next_ids(self, n):
+        return self.reader.next_ids(n)
+
+    def lookup(self, txid):
+        tx = self.reader.lookup(txid)
+        return None if tx is None else _tx_bytes(tx)
+
+
+class _SnapshotMonitor:
+    """LocalTxMonitor's view of a Mempool: its server asks for
+    `snapshot_txs()` and `wait_for_new(seen)`, which the Mempool has not;
+    this adapter reads `get_snapshot()`."""
+
+    def __init__(self, mempool):
+        self.mempool = mempool
+        self._bytes: dict = {}          # txid -> wire bytes
+
+    def snapshot_txs(self) -> list:
+        return [self._bytes.get(e.txid) or self._bytes.setdefault(
+            e.txid, _tx_bytes(e.tx))
+            for e in self.mempool.get_snapshot().entries]
+
+    async def wait_for_new(self, seen: int) -> None:
+        from ouroboros_tpu_torch import simharness as sim
+        while len(self.mempool.get_snapshot().entries) <= seen:
+            await sim.sleep(0.01)
+
+
+class _TapBearer:
+    """A bearer that keeps every SDU it reads and writes, (direction,
+    protocol number, mode, payload) in order, and adds no delay."""
+
+    def __init__(self, inner, log: list):
+        self.inner = inner
+        self.log = log
+
+    async def read(self):
+        sdu = await self.inner.read()
+        self.log.append(("in", sdu.num, sdu.mode, sdu.payload))
+        return sdu
+
+    async def write(self, sdu):
+        self.log.append(("out", sdu.num, sdu.mode, sdu.payload))
+        await self.inner.write(sdu)
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+
+def _cddl_check(log: list) -> tuple:
+    """Decode the tapped SDU payloads, one byte stream a (direction,
+    protocol, mode), into messages and check each against the reference's
+    grammar (`cddl.grammar` at tests/test_cddl_conformance.py's leaf
+    instantiations).  Returns ({protocol: messages}, [mismatches],
+    {protocol: bytes left undecoded at the end of the capture})."""
+    from ouroboros_tpu_torch.network import cddl
+    from ouroboros_tpu_torch.network import node_to_node as n2n
+    from ouroboros_tpu_torch.utils import cbor
+    g = cddl.grammar(header_hash=cddl.bstr, tx_id=cddl.bstr,
+                     transaction=cddl.bstr, reject_reason=cddl.tstr)
+    rules = {n2n.HANDSHAKE_NUM: ("handshake", g["handshake"]),
+             n2n.CHAINSYNC_NUM: ("chainsync", g["chainsync"](cddl.any_)),
+             n2n.BLOCKFETCH_NUM: ("blockfetch", g["blockfetch"](cddl.any_)),
+             n2n.TXSUBMISSION_NUM: ("txsubmission", g["txsubmission"])}
+    streams: dict = {}
+    for direction, num, mode, payload in log:
+        streams.setdefault((direction, num, mode), bytearray()).extend(
+            payload)
+    counts = {name: 0 for name, _r in rules.values()}
+    mismatches, left = [], {}
+    for (direction, num, mode), data in sorted(streams.items()):
+        if num not in rules:
+            continue                # keep-alive: no CDDL in the grammar
+        name, rule = rules[num]
+        data, pos = bytes(data), 0
+        while pos < len(data):
+            try:
+                obj, used = cbor.loads_prefix(data[pos:])
+            except cbor.CBORTruncated:
+                break               # the capture ended inside a message
+            pos += used
+            counts[name] += 1
+            try:
+                rule.check(obj)
+            except cddl.Mismatch as e:
+                mismatches.append((name, direction, str(e)[:200]))
+        if pos < len(data):
+            left[f"{name} {direction} {mode}"] = len(data) - pos
+    return counts, mismatches, left
+
+
+def protocols_phase(card: str, ext, chain, want_hash: bytes, follower_db,
+                    fleet: dict, multichip_tail: str, dev=None) -> dict:
+    """Phase 12: the node's remaining protocols and the operator tools on
+    the card.  Leg 1: `graft_entry.entry()`'s r3 verify form (128
+    signatures by one key) gives 128 x True through `ed25519.finalize`; a
+    second batch of 128 from the same key with eight lanes tampered (a
+    flipped message byte, a flipped signature byte, s >= L, a
+    non-canonical R, an R off the curve, a small-order A, a short
+    signature, a long key) gives, through the r3 form, `ed25519_ref`'s
+    verdicts and the `ed25519_verify` kernel's (`ed25519.batch_verify`);
+    the r3 form's CUDA-event time beside the kernel's on the same 128
+    valid lanes.  Leg 2: a Mempool over a fresh TorchBackend admits
+    `chainsynth.wallet_txs(pools, ledger at the tip, PROTO_VALID,
+    PROTO_FLIPPED)` (ed25519_split launched), every verdict a CppBackend
+    Mempool's; over one port Mux bearer pair in the simulator,
+    TxSubmission2 (Hello first) relays it into a second card Mempool,
+    the txids in the same order and the verdicts a CppBackend Mempool's
+    on the relayed transactions; LocalTxMonitor collects every admitted
+    transaction through `_SnapshotMonitor`, the bytes the snapshot's;
+    TipSample samples TIP_REQUESTS from a tip source over `follower_db`
+    (phase 11's follower's ChainDB), every tip on its chain.  Leg 3,
+    under the real-clock IO runtime: phase 11's server 0 (phase 5's chain
+    in an ImmutableDB behind `run_data_diffusion` on a loopback TCP port,
+    a card TorchBackend), a `ScrapeServer` over the process registry on
+    another; `python -m ouroboros_tpu_torch.ping 127.0.0.1 PORT --count
+    PING_COUNT` exits 0 with the negotiated version and PING_COUNT RTTs;
+    a fresh follower on a new TorchBackend syncs the first
+    PROTO_SYNC_BLOCKS blocks through a bearer tap, each of the four
+    window kernels launched, and every Handshake, ChainSync, BlockFetch
+    and TxSubmission message the tap saw matches the reference's grammar
+    (zero mismatches); the scrape is fetched with `scrape()`.  Leg 4:
+    obsreport renders phase 11's fleet report (`render_fleet`), the
+    scrape (`render_live`) and phase 8's MULTICHIP_OBS line
+    (`render_multichip` over `load_multichip` of a round file holding
+    its log), each with its section headers.  Returns the `protocols`
+    line's dict; `launches` is the phase's own count.  `dev` is the card
+    unless a rehearsal on the CPU names another device."""
+    import asyncio
+    import functools
+    import tempfile
+
+    from ouroboros_tpu_torch import chainsynth, graft_entry, obsreport
+    from ouroboros_tpu_torch import device as D
+    from ouroboros_tpu_torch import simharness as sim
+    from ouroboros_tpu_torch.chain import Tip, point_of
+    from ouroboros_tpu_torch.chain.block import Point
+    from ouroboros_tpu_torch.consensus.headers import (ProtocolBlock,
+                                                       ProtocolHeader)
+    from ouroboros_tpu_torch.consensus.mempool import Mempool
+    from ouroboros_tpu_torch.crypto import ed25519 as E
+    from ouroboros_tpu_torch.crypto import ed25519_ref, edwards as ed
+    from ouroboros_tpu_torch.crypto import kernels as K
+    from ouroboros_tpu_torch.crypto.backend import GLOBAL_BETA_CACHE
+    from ouroboros_tpu_torch.crypto.cpp_backend import CppBackend
+    from ouroboros_tpu_torch.crypto.torch_backend import TorchBackend
+    from ouroboros_tpu_torch.eras.shelley import ShelleyTx
+    from ouroboros_tpu_torch.network import node_to_node as n2n
+    from ouroboros_tpu_torch.network.mux import (INITIATOR, RESPONDER,
+                                                 CodecChannel, Mux,
+                                                 bearer_pair)
+    from ouroboros_tpu_torch.network.protocols import (
+        localtxmonitor as ltm, tipsample as tsp, txsubmission2 as tx2)
+    from ouroboros_tpu_torch.network.snocket import TcpSnocket
+    from ouroboros_tpu_torch.network.typed import CLIENT, SERVER, Session
+    from ouroboros_tpu_torch.node import BlockchainTime, NodeKernel
+    from ouroboros_tpu_torch.node.diffusion import (
+        INITIATOR_ONLY, DiffusionArguments, run_data_diffusion)
+    from ouroboros_tpu_torch.observe import export
+    from ouroboros_tpu_torch.observe.scrape import ScrapeServer, scrape
+    from ouroboros_tpu_torch.storage import MockFS
+    from ouroboros_tpu_torch.utils import cbor
+    import torch
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda") if dev is None else torch.device(dev)
+    totals = {k: 0 for k in K.LAUNCHES}
+
+    def count(launches):
+        for k, v in launches.items():
+            totals[k] += v
+    out: dict = {}
+
+    # -- leg 1: the compile-probe entry -------------------------------------
+    K.reset_launches()
+    t = time.perf_counter()
+    fn, args = graft_entry.entry(device=dev)
+    prep_s = time.perf_counter() - t
+    if any(a.device != args[0].device or a.device.type != dev.type
+           for a in args):
+        raise AssertionError("graft entry: example args not on the device")
+    t = time.perf_counter()
+    entry_ok = E.finalize(*fn(*args), [True] * graft_entry.N)
+    call_s = time.perf_counter() - t
+    if entry_ok != [True] * graft_entry.N:
+        raise AssertionError(f"graft entry: {entry_ok.count(False)} of "
+                             f"{graft_entry.N} lanes rejected")
+    vks, msgs, sigs = graft_entry.entry_batch()
+    bad_R = next(y for y in range(2, 100)
+                 if ed.decompress(y.to_bytes(32, "little")) is None)
+    msgs[1] = bytes([msgs[1][0] ^ 1]) + msgs[1][1:]
+    sigs[2] = sigs[2][:40] + bytes([sigs[2][40] ^ 4]) + sigs[2][41:]
+    sigs[3] = sigs[3][:32] + ed.L.to_bytes(32, "little")       # s >= L
+    sigs[4] = (ed.P + 1).to_bytes(32, "little") + sigs[4][32:]  # y_R >= p
+    sigs[5] = bad_R.to_bytes(32, "little") + sigs[5][32:]      # R off curve
+    vks[6] = (ed.P - 1).to_bytes(32, "little")                 # order 2
+    sigs[7] = sigs[7][:63]                                     # short sig
+    vks[8] = vks[8] + b"\x00"                                  # long key
+    arrays, valid = E.prepare_batch(vks, msgs, sigs, device=dev)
+    r3 = E.finalize(*E.verify_core(*arrays), valid)
+    ref = [ed25519_ref.verify(a, m, s) for a, m, s in zip(vks, msgs, sigs)]
+    kern = E.batch_verify(vks, msgs, sigs, device=dev)
+    launches = dict(K.LAUNCHES)
+    count(launches)
+    if r3 != ref or kern != ref or ref.count(False) != 8 or \
+            ("ed25519_verify" in PROBE_PATH
+             and launches["ed25519_verify"] == 0):
+        raise AssertionError(
+            f"protocols leg 1: r3 verdicts {r3 == ref}, ed25519_verify's "
+            f"{kern == ref} against ed25519_ref ({ref.count(False)} "
+            f"rejected), launches {launches}")
+    words, _ok = E.prepare_words_batch(*graft_entry.entry_batch())
+    wargs = tuple(torch.from_numpy(a).to(dev) for a in words)
+    r3_ms = D.event_ms(lambda: fn(*args), reps=5)
+    kernel_ms = D.event_ms(lambda: K.ed25519_verify(*wargs))
+    out["leg1"] = {"lanes": graft_entry.N, "prepare_s": prep_s,
+                   "first_call_s": call_s, "r3_ms": r3_ms,
+                   "ed25519_verify_ms": kernel_ms,
+                   "tampered": 8, "launches": launches}
+    log(f"protocols leg 1: graft entry {graft_entry.N} x True; the "
+        f"tampered batch's r3 verdicts == ed25519_ref == ed25519_verify "
+        f"(8 rejected); r3 form {r3_ms:.3f} ms, ed25519_verify "
+        f"{kernel_ms:.4f} ms on {graft_entry.N} lanes (CUDA events); "
+        f"prepare {prep_s:.3f} s; launches {launches}")
+
+    # -- leg 2: the mempool protocols ----------------------------------------
+    _ext, pools = chainsynth.shelley_setup(
+        REPLAY_BLOCKS, epoch_length=REPLAY_EPOCH, kes_depth=REPLAY_KES_DEPTH)
+    tip = follower_db.tip_point()
+    if tip != point_of(chain[-1]):
+        raise AssertionError("protocols: phase 11's follower is not at the "
+                             "chain's tip")
+    ledger = follower_db.current_ledger.ledger
+    txs = chainsynth.wallet_txs(pools, ledger, PROTO_VALID, PROTO_FLIPPED)
+
+    def mempool(backend):
+        return Mempool(ext.ledger, lambda: (ledger, tip), backend=backend)
+
+    def verdicts(mp, batch):
+        added, rejected = mp.try_add_txs(batch)
+        why = {id(tx): str(e) for tx, e in rejected}
+        return [why.get(id(tx)) for tx in batch], added
+
+    K.reset_launches()
+    t = time.perf_counter()
+    mp1 = mempool(TorchBackend())
+    got1, added1 = verdicts(mp1, txs)
+    admit_s = time.perf_counter() - t
+    t = time.perf_counter()
+    want1, _a = verdicts(mempool(CppBackend()), txs)
+    admit_cpp_s = time.perf_counter() - t
+    n_in = len(mp1.get_snapshot().entries)
+    if got1 != want1 or any(v is not None for v in got1[:PROTO_VALID]) or \
+            any(v is None for v in got1[PROTO_VALID:]):
+        raise AssertionError(f"protocols leg 2: admission verdicts "
+                             f"{got1 == want1} against CppBackend's, "
+                             f"{n_in} admitted")
+    mp2 = mempool(TorchBackend())
+    relayed, got2 = [], []
+
+    def sink(raw):
+        tx = ShelleyTx.decode(cbor.loads(raw))
+        relayed.append(tx)
+        got2.append(verdicts(mp2, [tx])[0][0])
+
+    tips, monitored, relay_s = [], [], {}
+    chain_blocks = follower_db.stream_blocks(Point.genesis(), tip)
+
+    async def tip_source(slot, after):
+        floor = slot if after is None else max(slot, after.point.slot + 1)
+        b = next(b for b in chain_blocks if b.slot >= floor)
+        return Tip(point_of(b), b.block_no)
+
+    async def relay():
+        ba, bb = bearer_pair()
+        ma, mb = Mux(ba, "proto.a"), Mux(bb, "proto.b")
+        ma.start()
+        mb.start()
+
+        def session(mux, num, mode, mod, role):
+            return Session(mod.SPEC, role,
+                           CodecChannel(mux.channel(num, mode), mod.CODEC))
+        t0 = time.perf_counter()
+        outbound = sim.spawn(tx2.outbound_from_mempool(
+            session(ma, n2n.TXSUBMISSION_NUM, INITIATOR, tx2, CLIENT),
+            _BytesReader(mp1.reader())), label="tx2.out")
+        await tx2.inbound_collect(
+            session(mb, n2n.TXSUBMISSION_NUM, RESPONDER, tx2, SERVER),
+            sink, window=TXSUBMISSION2_WINDOW)
+        await outbound.wait()
+        relay_s["txsubmission2"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        server = sim.spawn(ltm.server_from_mempool(
+            session(mb, LOCAL_TXMONITOR_NUM, RESPONDER, ltm, SERVER),
+            _SnapshotMonitor(mp2)), label="ltm.server")
+        monitored.extend(await ltm.client_collect(
+            session(ma, LOCAL_TXMONITOR_NUM, INITIATOR, ltm, CLIENT),
+            len(mp2.get_snapshot().entries)))
+        await server.wait()
+        relay_s["localtxmonitor"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        server = sim.spawn(tsp.server_from_tip_source(
+            session(mb, TIPSAMPLE_NUM, RESPONDER, tsp, SERVER),
+            tip_source), label="tipsample.server")
+        tips.extend(await tsp.client_sample(
+            session(ma, TIPSAMPLE_NUM, INITIATOR, tsp, CLIENT),
+            TIP_REQUESTS))
+        await server.wait()
+        relay_s["tipsample"] = time.perf_counter() - t0
+        ma.stop()
+        mb.stop()
+
+    sim.run(relay())
+    launches = dict(K.LAUNCHES)
+    count(launches)
+    cpp2 = mempool(CppBackend())
+    want2 = [verdicts(cpp2, [tx])[0][0] for tx in relayed]
+    ids1 = [e.txid for e in mp1.get_snapshot().entries]
+    ids2 = [e.txid for e in mp2.get_snapshot().entries]
+    snap = _SnapshotMonitor(mp2).snapshot_txs()
+    bad_tips = [(n, str(t.point)) for n, r in zip(TIP_REQUESTS, tips)
+                for t in r if not follower_db.contains_point(t.point)
+                or follower_db.get_block(t.point.hash).block_no
+                != t.block_no]
+    if ids2 != ids1 or got2 != want2 or monitored != snap or \
+            monitored != _SnapshotMonitor(mp1).snapshot_txs() or \
+            [len(r) for r in tips] != [n for n, _s in TIP_REQUESTS] or \
+            bad_tips or ("ed25519_split" in MAIN_PATH
+                         and launches["ed25519_split"] == 0):
+        raise AssertionError(
+            f"protocols leg 2: relayed txids in order {ids2 == ids1} "
+            f"({len(ids2)} of {len(ids1)}), verdicts == CppBackend's "
+            f"{got2 == want2}, monitored == snapshot {monitored == snap} "
+            f"({len(monitored)}), tips {[len(r) for r in tips]}, off the "
+            f"chain {bad_tips}, launches {launches}")
+    out["leg2"] = {
+        "submitted": len(txs), "admitted": n_in,
+        "capacity_bytes": mp1.capacity_bytes, "bytes_used": mp1.bytes_used,
+        "rejected": sorted(set(v for v in got1 if v is not None)),
+        "admit_s": admit_s, "admit_cpp_s": admit_cpp_s,
+        "relayed": len(relayed), "relay_s": relay_s,
+        "monitored": len(monitored),
+        "tips": [[t.point.slot, t.block_no] for r in tips for t in r],
+        "launches": launches}
+    log(f"protocols leg 2: {len(txs)} wallet transactions, {n_in} admitted "
+        f"({mp1.bytes_used} of {mp1.capacity_bytes} bytes), "
+        f"{len(txs) - n_in} rejected, verdicts == CppBackend's "
+        f"({admit_s:.3f} s on the card, {admit_cpp_s:.3f} s on "
+        f"CppBackend); TxSubmission2 relayed {len(relayed)} in order, "
+        f"verdicts == CppBackend's; LocalTxMonitor {len(monitored)} == the "
+        f"snapshot's bytes; TipSample {[len(r) for r in tips]} tips on the "
+        f"follower's chain; seconds {relay_s}; launches {launches}")
+
+    # -- leg 3: ping, the scrape and the CDDL check of a real sync ----------
+    GLOBAL_BETA_CACHE.clear()
+    cbackend = TorchBackend()
+    tap_log: list = []
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    class TapTcp(TcpSnocket):
+        def __init__(self):
+            self.bearers = []
+
+        async def connect(self, addr):
+            b = _TapBearer(await super().connect(addr), tap_log)
+            self.bearers.append(b)
+            return b
+
+    class ServerTcp(TcpSnocket):
+        def __init__(self):
+            self.accepted = []
+
+        async def listen(self, addr):
+            lst = await super().listen(addr)
+            accept = lst.accept
+
+            async def remembering():
+                bearer, remote = await accept()
+                self.accepted.append(bearer)
+                return bearer, remote
+            lst.accept = remembering
+            return lst
+
+    def kernel(db, label, backend, mp=None):
+        return NodeKernel(db, ext.ledger, mp, BlockchainTime(DIFF_SLOT_S),
+                          label=label, backend=backend,
+                          header_decode=ProtocolHeader.decode,
+                          block_decode_obj=lambda o: ProtocolBlock.decode(
+                              o, tx_decode=ShelleyTx.decode),
+                          tx_decode=ShelleyTx.decode)
+
+    async def serve_and_sync():
+        t0 = time.perf_counter()
+        fs = MockFS()
+        chainsynth.write_chaindb(fs, chain, len(chain))
+        sbackend = TorchBackend()
+        sdb = chainsynth.open_chaindb(fs, ext, sbackend)
+        server = kernel(sdb, "server", sbackend, Mempool(
+            ext.ledger, lambda: (sdb.current_ledger.ledger,
+                                 sdb.tip_point()), backend=sbackend))
+        server.start()
+        snk = ServerTcp()
+        d = await run_data_diffusion(
+            server, DiffusionArguments(addresses=[("127.0.0.1", 0)]), snk)
+        addr = d.listeners[0].addr
+        scraper = ScrapeServer(TcpSnocket(), ("127.0.0.1", 0))
+        await scraper.start()
+        out["servers_open_s"] = time.perf_counter() - t0
+        loop = asyncio.get_running_loop()
+        t0 = time.perf_counter()
+        ping = await loop.run_in_executor(None, functools.partial(
+            subprocess.run, [sys.executable, "-m", "ouroboros_tpu_torch.ping",
+                             addr[0], str(addr[1]), "--count",
+                             str(PING_COUNT)],
+            capture_output=True, text=True, timeout=60, cwd=root))
+        out["ping_s"] = time.perf_counter() - t0
+        out["ping_rc"], out["ping_stdout"] = ping.returncode, ping.stdout
+        out["ping_stderr"] = ping.stderr[-2000:]
+        wait = (chain[-1].slot + 2) * DIFF_SLOT_S - sim.now()
+        out["clock_wait_s"] = max(wait, 0.0)
+        await sim.sleep(wait)
+        fdb = chainsynth.open_chaindb(MockFS(), ext, cbackend)
+        mp = Mempool(ext.ledger, lambda: (fdb.current_ledger.ledger,
+                                          fdb.tip_point()), backend=cbackend)
+        follower = kernel(fdb, "cddl-follower", cbackend, mp)
+        K.reset_launches()
+        t0 = time.perf_counter()
+        follower.start()
+        tap = TapTcp()
+        fd = await run_data_diffusion(
+            follower, DiffusionArguments(ip_producers=[addr], ip_valency=1,
+                                         mode=INITIATOR_ONLY), tap)
+        while fdb.current_chain.head_block_no < PROTO_SYNC_BLOCKS - 1:
+            if time.perf_counter() - t0 > PROTO_LIMIT_S:
+                raise AssertionError(
+                    f"protocols leg 3: at block "
+                    f"{fdb.current_chain.head_block_no} after "
+                    f"{PROTO_LIMIT_S} s; failures "
+                    f"{_thread_failures(follower)}")
+            await sim.sleep(0.005)
+        out["sync_s"] = time.perf_counter() - t0
+        out["synced_to"] = fdb.current_chain.head_block_no
+        # transactions valid at the follower's tip, which its TxSubmission
+        # outbound offers the server: ids, then bodies on the wire
+        added, _r = mp.try_add_txs(chainsynth.wallet_txs(
+            pools, fdb.current_ledger.ledger, PROTO_TX_OFFERED))
+        out["offered"] = len(added)
+        t1 = time.perf_counter()
+        while not any(d == "out" and num == n2n.TXSUBMISSION_NUM
+                      and p[:2] == b"\x82\x03" for d, num, _m, p in tap_log):
+            if time.perf_counter() - t1 > 30.0:
+                raise AssertionError("protocols leg 3: no MsgReplyTxs on "
+                                     "the wire in 30 s")
+            await sim.sleep(0.005)
+        out["launches"] = dict(K.LAUNCHES)
+        out["invalid"] = len(fdb.invalid)
+        out["stopped_at"] = fdb.current_chain.head_block_no
+        out["on_chain"] = fdb.tip_point() == point_of(
+            chain[out["stopped_at"]])
+        out["failures"] = [(n, tl, repr(e)) for n, tl, e
+                           in _thread_failures(follower)]
+        follower.stop()
+        fd.stop()
+        for b in tap.bearers:
+            b.close()
+        out["scrape"] = await scrape(TcpSnocket(), scraper.listener.addr)
+        await scraper.stop()
+        server.stop()
+        d.stop()
+        for b in snk.accepted:
+            b.close()
+        await sim.sleep(0.05)
+
+    t = time.perf_counter()
+    sim.io_run(serve_and_sync())
+    io_s = time.perf_counter() - t
+    launches = out.pop("launches")
+    count(launches)
+    missing = [k for k in MAIN_PATH if launches[k] == 0]
+    try:
+        ping = json.loads(out["ping_stdout"].strip().splitlines()[-1])
+    except (IndexError, json.JSONDecodeError):
+        ping = {}
+    if out["ping_rc"] != 0 or not ping.get("ok") or \
+            ping.get("probes") != PING_COUNT or not ping.get("version"):
+        raise AssertionError(f"protocols leg 3: ping exited "
+                             f"{out['ping_rc']}: {out['ping_stdout']!r} "
+                             f"{out['ping_stderr']!r}")
+    counts, mismatches, left = _cddl_check(tap_log)
+    if mismatches or missing or out["invalid"] or not out["on_chain"] or \
+            out["failures"] or not all(counts.values()) or \
+            out["offered"] != PROTO_TX_OFFERED:
+        raise AssertionError(
+            f"protocols leg 3: {len(mismatches)} CDDL mismatches "
+            f"{mismatches[:5]}, messages {counts}, kernels not launched "
+            f"{missing}, {out['invalid']} invalid, tip on the chain "
+            f"{out['on_chain']}, failures {out['failures']}")
+    out["leg3"] = {
+        "ping": ping, "ping_s": out.pop("ping_s"),
+        "servers_open_s": out.pop("servers_open_s"),
+        "clock_wait_s": out.pop("clock_wait_s"),
+        "sync_s": out.pop("sync_s"), "synced_to": out.pop("synced_to"),
+        "stopped_at": out.pop("stopped_at"), "tx_offered": out.pop("offered"),
+        "io_run_s": io_s, "sdus": len(tap_log),
+        "cddl_messages": counts, "cddl_mismatches": len(mismatches),
+        "undecoded_tail_bytes": left, "launches": launches}
+    for k in ("ping_rc", "ping_stdout", "ping_stderr", "invalid",
+              "on_chain", "failures"):
+        out.pop(k)
+    log(f"protocols leg 3: ping version {ping.get('version')}, probes "
+        f"{ping.get('probes')} rtt ms min {ping.get('rtt_min_ms')} avg "
+        f"{ping.get('rtt_avg_ms')} max {ping.get('rtt_max_ms')}; a fresh "
+        f"follower synced to block {out['leg3']['synced_to']} in "
+        f"{out['leg3']['sync_s']:.3f} s over a tap of "
+        f"{len(tap_log)} SDUs: {counts} messages, 0 CDDL mismatches "
+        f"(undecoded at the capture's end {left}); launches {launches}")
+
+    # -- leg 4: obsreport on the card's own output -----------------------------
+    renders = {}
+    renders["fleet"] = obsreport.render_fleet(fleet)
+    renders["live"] = obsreport.render_live(
+        export.parse_prometheus_text(out.pop("scrape")))
+    with tempfile.TemporaryDirectory(prefix="ouro-protocols-") as tmp:
+        path = os.path.join(tmp, "MULTICHIP_r01.json")
+        with open(path, "w") as f:
+            json.dump({"n_devices": SHARDS, "rc": 0, "ok": True,
+                       "tail": multichip_tail}, f)
+        mc = obsreport.load_multichip(path)
+    renders["multichip"] = obsreport.render_multichip(mc)
+    headers = {
+        "fleet": ("fleet telemetry:", "block adoption", "per-peer mux"),
+        "live": ("replay progress", "latency/size histograms"),
+        "multichip": (f"multichip dryrun: {SHARDS} devices, rc=0 (green)",
+                      "compile attribution",
+                      "sharded pipelined replay")}
+    absent = {k: [h for h in hs if h not in renders[k]]
+              for k, hs in headers.items()}
+    if any(absent.values()):
+        raise AssertionError(f"protocols leg 4: headers missing {absent}")
+    out["leg4"] = {k: {"lines": v.count("\n"), "headers": list(headers[k])}
+                   for k, v in renders.items()}
+    for k, v in renders.items():
+        log(f"protocols leg 4, obsreport {k}:")
+        for line in v.rstrip().splitlines():
+            log("  " + line)
+    phase_s = time.perf_counter() - t_phase
+    log(f"protocols phase: {phase_s:.3f} s")
+    return {"seconds": phase_s, "entry": out["leg1"], "mempool": out["leg2"],
+            "sync": out["leg3"], "renders": out["leg4"],
             "launches": totals, "card": card}
+
+
+def protocols_alone() -> dict:
+    """Phase 12 alone, on the card: phase 5's chain forged, a ChainDB
+    holding it in place of phase 11's follower's, `_fleet_config()` run
+    on a fresh TorchBackend for its fleet report, and
+    `multichip.dryrun_multichip` over two shards of cuda:0 for its log.
+    Prints and returns the `protocols` line's dict.
+
+        python3 -c "import chip_smoke; chip_smoke.protocols_alone()"
+    """
+    import io
+    from contextlib import redirect_stdout
+
+    from ouroboros_tpu_torch import chainsynth, multichip
+    from ouroboros_tpu_torch.crypto import kernels as K
+    from ouroboros_tpu_torch.crypto.torch_backend import TorchBackend
+    from ouroboros_tpu_torch.storage import MockFS
+    from ouroboros_tpu_torch.testing import run_chaos_threadnet
+    from ouroboros_tpu_torch.testing import threadnet as TN
+
+    card = smi("name,power.limit")
+    log("card:", card)
+    K.library()
+    ext, chain, forged = chainsynth.forge_shelley(
+        REPLAY_BLOCKS, epoch_length=REPLAY_EPOCH, kes_depth=REPLAY_KES_DEPTH)
+    fs = MockFS()
+    chainsynth.write_chaindb(fs, chain, len(chain))
+    db = chainsynth.open_chaindb(fs, ext, TorchBackend())
+    real = TN.OpensslBackend
+    backend = TorchBackend()
+    TN.OpensslBackend = lambda: backend
+    try:
+        fleet = run_chaos_threadnet(_chaos_configs()["_fleet_config()"]).fleet
+    finally:
+        TN.OpensslBackend = real
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        multichip.dryrun_multichip(SHARDS, devices=["cuda:0"] * SHARDS)
+    pr = protocols_phase(card, ext, chain, forged.ledger.state_hash(), db,
+                         fleet, buf.getvalue())
+    print(json.dumps({"protocols": pr}))
+    return pr
 
 
 def replay_profiled(ext, chain) -> dict:
@@ -2868,7 +3518,12 @@ def main() -> int:
     # -- 11. the diffusion slice ---------------------------------------------
     df = diffusion_phase(card, *replayed, nd["sync"])
 
-    # -- 12. the standalone batch-verify path -------------------------------
+    # -- 12. the protocols and tools ------------------------------------------
+    pr = protocols_phase(card, *replayed, df.pop("follower_db"),
+                         df.pop("fleets")["_fleet_config()"],
+                         sh.pop("multichip_log"))
+
+    # -- 13. the standalone batch-verify path -------------------------------
     K.reset_launches()
     t = time.perf_counter()
     probe_rows = perf_probe.main(PROBE_ARGS)
@@ -2880,7 +3535,7 @@ def main() -> int:
         raise AssertionError(f"kernels not launched on the probe's path: "
                              f"{missing}")
 
-    # -- 13. the field microbenchmark path ----------------------------------
+    # -- 14. the field microbenchmark path ----------------------------------
     # every (lanes, op, k) its runs launch, and the first n - 3 lanes of
     # each lane count, exactly against the plain versions; a sample of the
     # JAX shape's lanes against Python integers
@@ -2982,7 +3637,7 @@ def main() -> int:
                              f"{not_dev}")
     rp["profiled"] = replay_profiled(*replayed[:2])
 
-    # -- 14. report -----------------------------------------------------------
+    # -- 15. report -----------------------------------------------------------
     serve_launches = sv["card"]["saturated"]["launches"]
     for entry in report:
         name = entry["name"]
@@ -2991,6 +3646,7 @@ def main() -> int:
         entry["chaindb_launches"] = cd["launches"][name]
         entry["node_launches"] = nd["launches"][name]
         entry["diffusion_launches"] = df["launches"][name]
+        entry["protocols_launches"] = pr["launches"][name]
         entry["sharded_launches"] = (sh["batch_verify"]["launches"][name]
                                      if name == "ed25519_verify"
                                      else sh["launches"][0][name])
@@ -3025,6 +3681,7 @@ def main() -> int:
     print(json.dumps({"chaindb": cd}))
     print(json.dumps({"node": nd}))
     print(json.dumps({"diffusion": df}))
+    print(json.dumps({"protocols": pr}))
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,11 @@ two ladders:
   16-entry joint table [i]B + [j](-A) and 128 steps of two doublings plus
   one cached addition over 2-bit windows of s and k;
 
-each accepting iff the result equals R projectively.
+each accepting iff the result equals R projectively.  Beside them, the r3
+form the compile-probe entry runs (`prepare_batch`, `verify_core`,
+`finalize`, `prepare_bytes_batch`): decompression finished on the host,
+the 256-bit ladder over limb arrays and bit rows, torch ops only as in
+the JAX package, where it is a jitted jnp program and no Pallas kernel.
 
 `verify_full_split_words_core` is the plain version of the `ed25519_split`
 CUDA kernel (../csrc/ed25519_split.cu), `verify_full_words_core` that of
@@ -30,6 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import device as device_mod
 from . import edwards as ed
 from . import field as F
 
@@ -153,17 +158,23 @@ def point_chain_core(a: torch.Tensor, b: torch.Tensor, kind: str,
 # Decompression (RFC 8032 §5.1.3), device_decompress:469
 # ---------------------------------------------------------------------------
 
-def device_decompress(y, sign):
-    """y: (10, N) carried limbs of canonical y; sign: (N,) x-parity bit.
-    Returns (x, ok): x with the requested parity (carried limbs); ok False
-    where no square root exists or x == 0 with sign == 1."""
+def _sqrt_candidate(y):
+    """(u, v, x candidate) with x = u*v^3*(u*v^7)^((p-5)/8) for u = y^2-1,
+    v = d*y^2+1 (RFC 8032 §5.1.3), in carried limbs."""
     one = F.const(1, y)
     y2 = F.sqr(y)
     u = F.sub(y2, one)
     v = F.add(F.mul(F.const(ed.D, y), y2), one)
     v3 = F.mul(F.sqr(v), v)
     v7 = F.mul(F.sqr(v3), v)
-    xc = F.mul(F.mul(u, v3), F.pow_p58(F.mul(u, v7)))
+    return u, v, F.mul(F.mul(u, v3), F.pow_p58(F.mul(u, v7)))
+
+
+def device_decompress(y, sign):
+    """y: (10, N) carried limbs of canonical y; sign: (N,) x-parity bit.
+    Returns (x, ok): x with the requested parity (carried limbs); ok False
+    where no square root exists or x == 0 with sign == 1."""
+    u, v, xc = _sqrt_candidate(y)
     vx2 = F.mul(v, F.sqr(xc))
     root_direct = F.is_zero(F.sub(vx2, u))
     root_twist = F.is_zero(F.add(vx2, u))
@@ -446,3 +457,202 @@ def prepare_words_batch(vks, msgs, sigs):
              words_from_bytes_rows(r_clear), signR,
              words_from_bytes_rows(s_rows),
              words_from_bytes_rows(k_rows)), parse_ok)
+
+
+# ---------------------------------------------------------------------------
+# The r3 form (ed25519_jax.py:190-232, 451-466, 531-630, 680-710): the
+# square root of decompression on the device, its cheap tail in Python
+# ints, then the 256-bit ladder over limb arrays and bit rows, its (d1, d2)
+# reduced on the host.  The compile-probe entry (graft_entry.py) runs it;
+# it is the JAX form's parity surface there and no user path runs it (the
+# ed25519_verify kernel verifies ~400x faster).  The JAX package's limbs
+# are 20 of radix 2^13 and these are the port's 10, so only the bit rows,
+# the valid mask and `prepare_bytes_batch` come out byte for byte the JAX
+# package's; the limbs agree on their integers (`limbs_from_jax`).
+# ---------------------------------------------------------------------------
+
+
+def limbs_from_jax(arr, device=None) -> torch.Tensor:
+    """(20, N) limbs of the JAX package's field (radix 2^13, e.g.
+    ed25519_jax.prepare_batch's) -> the port's (10, N) carried limbs of
+    the same integers mod p, on `device` (the card by default)."""
+    dev = device_mod.resolve(device)
+    return F.limbs_from_radix13(np.asarray(arr)).to(dev)
+
+
+def decompress_kernel(y):
+    """Batched candidate square root for point decompression: (10, N)
+    carried limbs of canonical y -> x = u*v^3*(u*v^7)^((p-5)/8) for
+    u = y^2-1, v = d*y^2+1.  The host applies the cheap final steps
+    (`_finish_decompress`)."""
+    return _sqrt_candidate(y)[2]
+
+
+def _finish_decompress(y: int, sign: int, x_cand: int):
+    """Cheap host tail of decompression given the device sqrt candidate."""
+    u = (y * y - 1) % ed.P
+    v = (ed.D * y * y + 1) % ed.P
+    vx2 = v * x_cand * x_cand % ed.P
+    if vx2 == u:
+        x = x_cand
+    elif vx2 == ed.P - u:
+        x = x_cand * ed.SQRT_M1 % ed.P
+    else:
+        return None
+    if x == 0 and sign == 1:
+        return None
+    if x & 1 != sign:
+        x = ed.P - x
+    return x
+
+
+def _int_bits_msb_first(x: int, nbits: int = 256) -> np.ndarray:
+    raw = np.frombuffer(x.to_bytes(nbits // 8, "big"), dtype=np.uint8)
+    return np.unpackbits(raw).astype(np.int32)
+
+
+def prepare_batch(vks, msgs, sigs, device=None):
+    """Host prep of the r3 form: decode and hash every (vk, msg, sig).
+
+    The square roots of decompression run batched on `device` (the card
+    by default; raises without one unless given "cpu")
+    (`decompress_kernel`, A's ys and R's in one call); the host does the
+    parsing, SHA-512, the root check and sign fix, and packing.
+
+    Returns ((nax, nay, nat, rx, ry, s_bits, k_bits), valid): -A's x, y and
+    x*y and R's x and y as (10, N) carried limbs, s and k as (256, N)
+    int32 MSB-first bit rows, all on `device`; `valid` an (N,) numpy bool
+    mask.  Invalid entries (bad point encoding, s >= L, wrong length) get
+    zero inputs and are masked False."""
+    device = device_mod.resolve(device)
+    n = len(vks)
+    y_A = [0] * n
+    y_R = [0] * n
+    sign_A = [0] * n
+    sign_R = [0] * n
+    ss = [0] * n
+    ks = [0] * n
+    parse_ok = np.zeros(n, dtype=bool)
+    mask255 = (1 << 255) - 1
+    for j in range(n):
+        vk, msg, sig = vks[j], msgs[j], sigs[j]
+        if len(sig) != 64 or len(vk) != 32:
+            continue
+        na = int.from_bytes(vk, "little")
+        nr = int.from_bytes(sig[:32], "little")
+        ya, yr = na & mask255, nr & mask255
+        if ya >= ed.P or yr >= ed.P:
+            continue
+        s = int.from_bytes(sig[32:], "little")
+        if s >= L:
+            continue
+        y_A[j], sign_A[j] = ya, na >> 255
+        y_R[j], sign_R[j] = yr, nr >> 255
+        ss[j] = s
+        ks[j] = ed.sha512_int(sig[:32], vk, msg) % L
+        parse_ok[j] = True
+    xs = F.unpack(decompress_kernel(F.pack(y_A + y_R, device=device)))
+    vals = {name: [0] * n for name in ("nax", "nay", "nat", "rx", "ry")}
+    s_bits = np.zeros((256, n), np.int32)
+    k_bits = np.zeros((256, n), np.int32)
+    valid = np.zeros(n, dtype=bool)
+    for j in range(n):
+        if not parse_ok[j]:
+            continue
+        ax = _finish_decompress(y_A[j], sign_A[j], xs[j])
+        rx = _finish_decompress(y_R[j], sign_R[j], xs[n + j])
+        if ax is None or rx is None:
+            continue
+        nax = (ed.P - ax) % ed.P
+        vals["nax"][j] = nax
+        vals["nay"][j] = y_A[j]
+        vals["nat"][j] = nax * y_A[j] % ed.P
+        vals["rx"][j] = rx
+        vals["ry"][j] = y_R[j]
+        s_bits[:, j] = _int_bits_msb_first(ss[j])
+        k_bits[:, j] = _int_bits_msb_first(ks[j])
+        valid[j] = True
+    limbs = tuple(F.pack(vals[k], device=device)
+                  for k in ("nax", "nay", "nat", "rx", "ry"))
+    bits = tuple(torch.from_numpy(b).to(device) for b in (s_bits, k_bits))
+    return limbs + bits, valid
+
+
+def verify_core(negA_x, negA_y, negA_t, Rx, Ry, s_bits, k_bits,
+                nbits: int = 256):
+    """Q = [s]B + [k](-A); the projective differences from affine R.
+
+    Inputs: (10, N) carried limbs; (nbits, N) MSB-first bit rows.  Returns
+    (d1, d2) = (Rx*Z_Q - X_Q, Ry*Z_Q - Y_Q) as (10, N) limbs on the
+    inputs' device: the signature holds iff both are 0 mod p
+    (`finalize`).  Windowed Strauss-Shamir with w = 2: nbits/2 steps of
+    two doublings and one addition of T[s digit + 4 k digit] from the
+    joint table [i]B + [j](-A).  The table's cached entries and the
+    cached addition give the JAX form's extended-coordinate values mod p
+    step for step, so d1 and d2 equal its own mod p even where the
+    signature fails."""
+    negA = (negA_x, negA_y, F.const(1, negA_x), negA_t)
+    table = stack_table(joint_table_16(negA))
+    s = torch.as_tensor(s_bits, device=negA_x.device).to(torch.int64)
+    k = torch.as_tensor(k_bits, device=negA_x.device).to(torch.int64)
+    idx = (2 * s[0:nbits:2] + s[1:nbits:2]) \
+        + 4 * (2 * k[0:nbits:2] + k[1:nbits:2])
+    Q = _identity_like(negA_x)
+    for i in range(nbits // 2):
+        Q = pt_add_cached(pt_double(pt_double(Q)), select(table, idx[i]))
+    X, Y, Z, _ = Q
+    return F.sub(F.mul(Rx, Z), X), F.sub(F.mul(Ry, Z), Y)
+
+
+# the JAX package jits verify_core with nbits static; here it is the same
+# function, nbits a plain argument
+verify_kernel = verify_core
+
+_LIMB_WEIGHTS = np.array([1 << o for o in F.OFFSETS], dtype=object)
+
+
+def finalize(d1, d2, valid) -> list[bool]:
+    """Reduce the (uncarried, possibly negative) limb differences to ints
+    mod p on the host and accept where both vanish."""
+    v1 = (_LIMB_WEIGHTS @ d1.cpu().numpy().astype(object)) % ed.P
+    v2 = (_LIMB_WEIGHTS @ d2.cpu().numpy().astype(object)) % ed.P
+    ok = (v1 == 0) & (v2 == 0) & np.asarray(valid, dtype=bool)
+    return [bool(b) for b in ok]
+
+
+_RADIX13_W = (1 << np.arange(13)).astype(np.int32)
+
+
+def _byte_rows_of_words(w: np.ndarray) -> np.ndarray:
+    """(8, N) uint32 words -> (N, 32) uint8 little-endian byte rows."""
+    return np.ascontiguousarray(w.T).view(np.uint8)
+
+
+def _radix13_of_words(w: np.ndarray) -> np.ndarray:
+    """(8, N) uint32 words of values below 2^255 -> (20, N) int32 digits
+    of radix 2^13, the JAX package's limbs."""
+    bits = np.unpackbits(_byte_rows_of_words(w), axis=1, bitorder="little")
+    padded = np.pad(bits, ((0, 0), (0, 20 * 13 - 256)))
+    limbs = padded.reshape(-1, 20, 13).astype(np.int32) @ _RADIX13_W
+    return np.ascontiguousarray(limbs.T)
+
+
+def _msb_bits_of_words(w: np.ndarray) -> np.ndarray:
+    """(8, N) uint32 words -> (256, N) int32 MSB-first bit rows."""
+    bits = np.unpackbits(_byte_rows_of_words(w)[:, ::-1], axis=1,
+                         bitorder="big")
+    return np.ascontiguousarray(bits.T).astype(np.int32)
+
+
+def prepare_bytes_batch(vks, msgs, sigs):
+    """Numpy-only host prep of the JAX package's fused full verify,
+    byte for byte ed25519_jax.prepare_bytes_batch: `prepare_words_batch`
+    (the parse, the s < L check and k's hash) in the JAX layout.
+
+    Returns ((yA, signA, yR, signR, s_bits, k_bits), parse_ok): yA and yR
+    as (20, N) int32 radix-2^13 limbs (`limbs_from_jax` gives the port's),
+    the signs (N,) int32, s and k as (256, N) int32 MSB-first bit rows."""
+    (Aw, signA, Rw, signR, sw, kw), parse_ok = \
+        prepare_words_batch(vks, msgs, sigs)
+    return ((_radix13_of_words(Aw), signA, _radix13_of_words(Rw), signR,
+             _msb_bits_of_words(sw), _msb_bits_of_words(kw)), parse_ok)

@@ -1,13 +1,12 @@
-"""Mini-protocols: ChainSync, BlockFetch, TxSubmission, KeepAlive,
-Handshake, LocalStateQuery and LocalTxSubmission, each with its codec
-(`codec.py`).
+"""Mini-protocols: ChainSync, BlockFetch, TxSubmission(+2 via Hello),
+KeepAlive, Handshake, LocalStateQuery, LocalTxSubmission, LocalTxMonitor,
+TipSample, plus the PingPong/ReqResp teaching protocols.
 
 Reference: ouroboros-network/src/Ouroboros/Network/Protocol/*/Type.hs state
 machines, rebuilt as ProtocolSpecs + message dataclasses + async peers.
 
 Ported from `ouroboros_tpu/network/protocols/__init__.py` (the port imports
-nothing of the JAX package): the node-to-node protocols and the two
-node-to-client ones the local socket serves (LocalStateQuery,
-LocalTxSubmission). Not ported yet: LocalTxMonitor, TipSample, TxSubmission2
-with Hello, and the PingPong / ReqResp examples.
+nothing of the JAX package). Copied whole: like the reference, it imports
+no submodule, so `from ouroboros_tpu_torch.network.protocols import
+tipsample` loads only what it names.
 """

@@ -711,9 +711,8 @@ def test_scrape_quantiles_from_pipelined_replay(chain):
     # replay progress gauges rode along on the same exposition
     assert parsed["ouro_replay_progress_blocks_done"] == len(blocks)
     assert parsed["ouro_replay_progress_windows_in_flight"] == 0
-    # ... and obsreport --live renders the frame (the JAX package's tool:
-    # its port waits, and it renders the port's exposition unchanged)
-    from tools.obsreport import render_live
+    # ... and obsreport --live renders the frame
+    from ouroboros_tpu_torch.obsreport import render_live
     live = render_live(parsed)
     assert f"{len(blocks)}/{len(blocks)} blocks" in live
     assert base in live

@@ -448,3 +448,112 @@ def test_two_peer_sync_over_tcp_on_the_card(dev):
             == state.ledger.state_hash())
     assert all(K.LAUNCHES[k] > 0 for k in ("ed25519_split", "vrf_verify",
                                             "gamma8", "kes_hash"))
+
+
+def test_graft_entry_r3_form_on_the_card(dev):
+    """The compile-probe entry on the card: its example arguments on the
+    card, 128 x True; a tampered copy's r3 verdicts ed25519_ref's and the
+    ed25519_verify kernel's, which launches; the differences mod p those
+    of the same batch on the CPU."""
+    from ouroboros_tpu_torch import graft_entry
+    from ouroboros_tpu_torch.crypto import ed25519 as E
+    from ouroboros_tpu_torch.crypto import edwards as ed
+    from ouroboros_tpu_torch.crypto import field as F
+    fn, args = graft_entry.entry()
+    assert all(a.device.type == "cuda" for a in args)
+    assert E.finalize(*fn(*args), [True] * graft_entry.N) \
+        == [True] * graft_entry.N
+    vks, msgs, sigs = (x[:16] for x in graft_entry.entry_batch())
+    msgs[1] = msgs[1] + b"!"
+    sigs[2] = sigs[2][:32] + ed.L.to_bytes(32, "little")
+    vks[3] = (ed.P - 1).to_bytes(32, "little")
+    sigs[4] = sigs[4][:63]
+    arrays, valid = E.prepare_batch(vks, msgs, sigs, device=dev)
+    d = E.verify_core(*arrays)
+    want = [ed25519_ref.verify(a, m, s) for a, m, s in zip(vks, msgs, sigs)]
+    before = K.LAUNCHES["ed25519_verify"]
+    assert E.finalize(*d, valid) == want
+    assert E.batch_verify(vks, msgs, sigs, device=dev) == want
+    assert K.LAUNCHES["ed25519_verify"] == before + 1
+    cpu_arrays, _v = E.prepare_batch(vks, msgs, sigs, device="cpu")
+    for got, ref in zip(d, E.verify_core(*cpu_arrays)):
+        assert got.device.type == "cuda"
+        assert F.unpack(got) == F.unpack(ref)
+
+
+def test_txsubmission2_relay_between_card_mempools(dev):
+    """chip_smoke.py's mempool leg at a small size: a Mempool over
+    TorchBackend admits 32 wallet transactions and rejects 4 with a
+    flipped witness (ed25519_split launched), CppBackend's verdicts;
+    TxSubmission2 (Hello first) over a Mux bearer pair relays it into a
+    second card Mempool, the txids in the same order."""
+    from ouroboros_tpu_torch import chainsynth
+    from ouroboros_tpu_torch import simharness as sim
+    from ouroboros_tpu_torch.chain import point_of
+    from ouroboros_tpu_torch.consensus.mempool import Mempool
+    from ouroboros_tpu_torch.crypto.cpp_backend import CppBackend
+    from ouroboros_tpu_torch.eras.shelley import ShelleyTx
+    from ouroboros_tpu_torch.network import node_to_node as n2n
+    from ouroboros_tpu_torch.network.mux import (INITIATOR, RESPONDER,
+                                                 CodecChannel, Mux,
+                                                 bearer_pair)
+    from ouroboros_tpu_torch.network.protocols import txsubmission2 as tx2
+    from ouroboros_tpu_torch.network.typed import CLIENT, SERVER, Session
+    from ouroboros_tpu_torch.utils import cbor
+    ext, blocks, state = chainsynth.forge_shelley(40, epoch_length=10,
+                                                  kes_depth=3)
+    _e, pools = chainsynth.shelley_setup(40, epoch_length=10, kes_depth=3)
+    txs = chainsynth.wallet_txs(pools, state.ledger, 32, 4)
+    tip = point_of(blocks[-1])
+
+    def mempool(backend):
+        return Mempool(ext.ledger, lambda: (state.ledger, tip),
+                       backend=backend)
+
+    def verdicts(mp, batch):
+        _added, rejected = mp.try_add_txs(batch)
+        why = {id(tx): str(e) for tx, e in rejected}
+        return [why.get(id(tx)) for tx in batch]
+
+    K.reset_launches()
+    mp1, mp2 = mempool(TorchBackend(device=dev)), mempool(
+        TorchBackend(device=dev))
+    assert verdicts(mp1, txs) == verdicts(mempool(CppBackend()), txs)
+    assert K.LAUNCHES["ed25519_split"] > 0
+
+    class BytesReader:
+        def __init__(self, reader):
+            self.reader = reader
+
+        def next_ids(self, n):
+            return self.reader.next_ids(n)
+
+        def lookup(self, txid):
+            tx = self.reader.lookup(txid)
+            return None if tx is None else cbor.dumps(tx.encode())
+
+    got = []
+
+    def sink(raw):
+        got.append(verdicts(mp2, [ShelleyTx.decode(cbor.loads(raw))])[0])
+
+    async def main():
+        ba, bb = bearer_pair()
+        ma, mb = Mux(ba, "a"), Mux(bb, "b")
+        ma.start()
+        mb.start()
+        out = sim.spawn(tx2.outbound_from_mempool(
+            Session(tx2.SPEC, CLIENT, CodecChannel(
+                ma.channel(n2n.TXSUBMISSION_NUM, INITIATOR), tx2.CODEC)),
+            BytesReader(mp1.reader())), label="out")
+        await tx2.inbound_collect(Session(tx2.SPEC, SERVER, CodecChannel(
+            mb.channel(n2n.TXSUBMISSION_NUM, RESPONDER), tx2.CODEC)),
+            sink, window=5)
+        await out.wait()
+        ma.stop()
+        mb.stop()
+
+    sim.run(main())
+    assert got == [None] * 32
+    assert [e.txid for e in mp2.get_snapshot().entries] == \
+        [e.txid for e in mp1.get_snapshot().entries]

@@ -67,6 +67,18 @@ _NAMED = [
     "ouroboros_tpu_torch.observe.adapter",
     "ouroboros_tpu_torch.observe.propagation",
     "ouroboros_tpu_torch.observe.scrape",
+    # the remaining protocols and the operator tools
+    "ouroboros_tpu_torch.network.cddl",
+    "ouroboros_tpu_torch.network.protocols.hello",
+    "ouroboros_tpu_torch.network.protocols.txsubmission2",
+    "ouroboros_tpu_torch.network.protocols.tipsample",
+    "ouroboros_tpu_torch.network.protocols.localtxmonitor",
+    "ouroboros_tpu_torch.network.protocols.examples",
+    "ouroboros_tpu_torch.node.ntp_client",
+    "ouroboros_tpu_torch.graft_entry",
+    "ouroboros_tpu_torch.ping",
+    "ouroboros_tpu_torch.obsreport",
+    "ouroboros_tpu_torch.perfgate",
 ]
 
 _CHECK = r"""
@@ -93,22 +105,22 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 123         # every module of every slice imported
+    assert n_modules >= 134         # every module of every slice imported
 
 
-_BANNED = ("jax", "jaxlib", "ouroboros_tpu")
+_BANNED = ("jax", "jaxlib", "ouroboros_tpu", "tools")
 
 
 def _banned(name) -> bool:
-    """A module name that is JAX's or the JAX package's (a relative import,
-    whose name is None or relative, is the port's own)."""
+    """A module name that is JAX's, the JAX package's or its tools' (a
+    relative import, whose name is None or relative, is the port's own)."""
     return isinstance(name, str) and name.split(".")[0] in _BANNED
 
 
 def banned_imports(source: str, filename: str = "<source>") -> list:
     """(line, name) of every import in `source`, at any depth (module
-    level, in a function, a class or a branch), that names JAX or the
-    JAX package: `import x`, `from x import y` (absolute only; a relative
+    level, in a function, a class or a branch), that names JAX, the
+    JAX package or its tools: `import x`, `from x import y` (absolute only; a relative
     one stays in the port), and `importlib.import_module` or
     `__import__` of a constant string.  `ouroboros_tpu_torch` is allowed."""
     out = []
@@ -155,6 +167,12 @@ def test_no_import_at_any_depth_names_jax_or_the_jax_package():
     ("import jaxlib", True),
     ("import importlib\nimportlib.import_module('ouroboros_tpu.node')", True),
     ("__import__('jax')", True),
+    # the operator tools the port copies (ping, obsreport, perfgate)
+    ("from tools.obsreport import render_live", True),
+    ("import tools.perfgate as perfgate", True),
+    ("importlib.import_module('tools.ping')", True),
+    ("from ouroboros_tpu_torch.obsreport import render_live", False),
+    ("from .obsreport import load_bench", False),
     ("from ..consensus.ledger import OutsideForecastRange", False),
     ("from ouroboros_tpu_torch.node import NodeKernel", False),
     ("import ouroboros_tpu_torch.node", False),
@@ -344,3 +362,33 @@ def test_run_node_default_backend_raises_without_a_card():
 
     with pytest.raises(RuntimeError):
         sim.run(main())
+
+
+def test_graft_entry_raises_without_a_card():
+    """The compile-probe entry prepares its batch on the card: without
+    one it raises before any work, unless given device="cpu"."""
+    _require_no_card()
+    from ouroboros_tpu_torch import graft_entry
+    with pytest.raises(RuntimeError):
+        graft_entry.entry()
+    with pytest.raises(RuntimeError):
+        graft_entry.entry(device="cuda")
+
+
+def test_r3_host_prep_raises_without_a_card():
+    """The r3 form's public prep runs on the card by default, as
+    `batch_verify` does: without one, `prepare_batch` and `limbs_from_jax`
+    raise unless given device="cpu"."""
+    _require_no_card()
+    import numpy as np
+
+    from ouroboros_tpu_torch.crypto import ed25519
+    with pytest.raises(RuntimeError):
+        ed25519.prepare_batch([b"\x00" * 32], [b""], [b"\x00" * 64])
+    with pytest.raises(RuntimeError):
+        ed25519.limbs_from_jax(np.zeros((20, 1), np.int32))
+    arrays, valid = ed25519.prepare_batch([b"\x00" * 32], [b""],
+                                          [b"\x00" * 64], device="cpu")
+    assert arrays[0].device.type == "cpu" and valid.shape == (1,)
+    assert ed25519.limbs_from_jax(np.zeros((20, 1), np.int32),
+                                  device="cpu").device.type == "cpu"
