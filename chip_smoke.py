@@ -195,13 +195,36 @@ the CUDA toolkit.  Phases:
    (`cddl.grammar`), none mismatched; the port's ScrapeServer scraped
    meanwhile; obsreport's renders of phase 11's fleet report, the scrape
    and phase 8's MULTICHIP_OBS line, each with its section headers; ~30
-   s.  (Phases 12-14 of the previous version of this script are 13-15
-   here);
-13. the standalone batch-verify path: `perf_probe --old` at 4096 Ed25519
+   s;
+13. the reference's conformance surface (tests/test_real_header.py,
+   test_external_conformance.py, test_cardano_threadnet.py and
+   test_threadnet_scale.py), each run on a fresh TorchBackend: the golden
+   Shelley header made by the real Cardano crypto stack (libsodium
+   ECVRF, Sum6 KES, Ed25519; vendored below) parsed, re-encoded byte for
+   byte and validated through `SC.validate_header`, the four window
+   kernels launched; its OCert tiled to 4096 lanes of ed25519_split and
+   ed25519_verify, its two VRF certificates to 2048 of vrf_verify, its
+   KES path's Blake2b jobs to 8192 of kes_hash and the two libsodium
+   proofs to 2048 of gamma8, every 7th lane tampered (another field each
+   time), each kernel exactly its plain version, every lane the CPU
+   references' verdict (ed25519_ref, vrf_ref, hashlib), every tampered
+   lane rejected, every untampered beta the libsodium output,
+   `batch_verify_ed25519` and `vrf.batch_betas` on the same lanes; the
+   reference's Byron PBFT -> Shelley TPraos network (3 nodes, 10-slot
+   epochs, the fork at epoch 2 by a ledger update proposal, seed 23) and
+   its era ladder on to Allegra and Mary (seed 7), on the card and on
+   CppBackend: per node the same block hashes, era tags and encoded
+   final ExtLedgerState, the reference's checks on both, the four
+   window kernels launched; the restart configuration (4 mock-Praos
+   nodes, 60 slots, two restarts from their own files) and the rekeying
+   cases (24 blocks across a mid-run rekey, a counter jump and a stale
+   certificate each refused) the same on both; per leg the wall, the
+   card calls' count and seconds, and the launches; ~35 s;
+14. the standalone batch-verify path: `perf_probe --old` at 4096 Ed25519
    and 2048 VRF lanes (split and full Ed25519 verify, VRF verify, betas;
    each row asserts that every lane verifies), where ed25519_verify and
    the three kernels the probe drives must launch;
-14. the field microbenchmark path: field_chain, field_chain_lp (mul and
+15. the field microbenchmark path: field_chain, field_chain_lp (mul and
    sqr), point_chain and point_chain_x4 each held exactly against its
    plain version on the card for every operation at both of its chain
    lengths, at every lane count the microbenchmark runs (4096, the JAX
@@ -220,7 +243,7 @@ the CUDA toolkit.  Phases:
    host time.  After them one more replay of phase 5's valid chain runs
    under torch.profiler for the card's busy seconds: its some hundred
    thousand traced kernels could reach a later trace, so it comes last;
-15. a `main_path` JSON line, a `microbench_field` JSON line (the
+16. a `main_path` JSON line, a `microbench_field` JSON line (the
    per-operation rows at both lane counts), a `replay` JSON line
    (blocks/s, proofs/s, the producer's host_seq and submit seconds with
    the fill and fold inside it, and the consumer's drain seconds, per
@@ -265,7 +288,10 @@ the CUDA toolkit.  Phases:
    CppBackend, relayed, monitored and the sampled tips; the ping's
    result, the sync's seconds and block, the tap's SDUs and messages a
    protocol, the CDDL mismatches (0); the renders; the phase's launches;
-   the card), a `kernels` JSON line
+   the card), a `conformance` JSON line (leg 1's lanes, tampered lanes
+   and errors; each network's heads, era tags, seconds on both backends,
+   card calls and their seconds; the restart and rekeying legs' the
+   same; the phase's launches; the card), a `kernels` JSON line
    (each
    kernel's launches are those of its path: the main path's, the
    probe's for ed25519_verify, the microbenchmark's for the chains, and
@@ -276,8 +302,9 @@ the CUDA toolkit.  Phases:
    (for ed25519_verify, the sharded batch verify) as
    `sharded_launches`, in the chain database phase as
    `chaindb_launches`, in the node phase as `node_launches`, in the
-   diffusion phase as `diffusion_launches`, and in the protocols phase
-   as `protocols_launches`; its
+   diffusion phase as `diffusion_launches`, in the protocols phase as
+   `protocols_launches`, and in the conformance phase's counted calls
+   (not its comparisons) as `conformance_launches`; its
    launch shape as threads_per_lane and block; kes_hash's 65536-lane
    row under `wide`), the card line, and as
    the last line {"ok": true, "device": {...}}.
@@ -411,6 +438,63 @@ TIPSAMPLE_NUM = 10
 PROTO_TX_OFFERED = 8                   # leg 3: the follower's mempool
 TIP_REQUESTS = ((8, 0), (16, 1000), (4, 2500))   # (n, from slot)
 PROTO_LIMIT_S = 120.0
+
+# the conformance phase (13): the golden Shelley header of the reference's
+# ouroboros-consensus-shelley-test/test/golden/ShelleyNodeToNodeVersion1/
+# Header, made by the real Cardano crypto stack (libsodium ECVRF, Sum6 KES,
+# Ed25519; tests/test_real_header.py vendors the same bytes), and its two
+# VRF certificates' libsodium outputs (tests/test_external_conformance.py)
+GOLDEN_HEADER_HEX = (
+    "d8185903e4828f03095820bb30a42c1e62f0afda5f0a4e8a562f7a13a24cea00ee81917b"
+    "86b89e801314aa58208a88e3dd7409f195fd52db2d3cba5d72ca6709bf1d94121bf37488"
+    "01b40f6f5c58208a88e3dd7409f195fd52db2d3cba5d72ca6709bf1d94121bf3748801b4"
+    "0f6f5c8258404fefc7c718693b57c87170ceba220382afbdd148c0a53b4a009ca63ad1f1"
+    "01483a6170c83a77f23d362a68dcb502802df7f98fa4f7a78b4082b211530e1234305850"
+    "f770f6769ae9871d42b970fc6254bb927c2181fff45897f241bd72221d86d33c8df64c0a"
+    "3c8cbb9aa52fef191d7202465c52df8d33727a38c7dc5d40864d753348a340f8afcbb3bb"
+    "05d4a03f16b1080d825840fe682775f0fa232e909ddc9ec3210ea7a0ee6514cd8b081519"
+    "0a08f7cef3985463152e10dfad9ed6c09b641b6c1824498e77814a7c12e03096a63cd620"
+    "56446358500951ed3ef2065e4196d008b50a63bb3e2bdc9a64df67eff4e230b35429291d"
+    "ef476684114e074357a5c834bf79eacf583b6fe9fcd1d17f3719a31de97aa4da5e4630b0"
+    "5421359e0b6e4a9bd76c6b920b1909295820e7151e54578da8534352744c8ae184da9383"
+    "6aae349d81755199ef8cd91272fc5820d298da3803eb9958f01c02e73f2410f2f9bb2ecb"
+    "c346526b1b76772e1bdd7db500005840940f8a3696847e4a238705bdd27a345086282067"
+    "b9bc5cb7b69847ca8756085844d576f59ab056c169a504320cc1eab4c11fd529482b3c57"
+    "da6fa96d44635b0802005901c09a407cf27c08d92c740f86d8463ad755ae4c7cbcc6c2ed"
+    "4a2b845daf4b250e2e36323a14af6a58a4ec614943f661daace19fbf6371693140ef1794"
+    "06fd0c9d00cc6a5ab5c9b40f817c715df558af7d07b6186f0ccf31715ec2fb00980730ac"
+    "166af657e6670608afe1bf651d496e01b1c7ff1eb44614d8cfd1b7e32b2c2939349236cc"
+    "0ada145d8d8d7ad919ef1e60c8bbad31dbedf9f395849705a00c14a8785106aae31f55ab"
+    "c5b1f2089cbef16d9401f158704c1e4f740f7125cfc700a99d97d0332eacb33e4bbc8dab"
+    "2872ec2b3df9e113addaebd156bfc64fdfc732614d2aedd10a58a34993b7b08c822af3aa"
+    "615b6bbb9b267bc902e4f1075e194aed084ca18f8bcde1a6b094bf3f5295a0d454c0a083"
+    "ed5b74f7092fc0a7346c03979a30eeea76d686e512ba48d21544ba874886cdd166cbf275"
+    "b11f1f3881f4c4277c09a24b88fc6168f4578267bdc9d62cb9b78b8dfc888ccce226a177"
+    "725f39e7d50930552861d1e88b7898971c780dc3b773321ba1854422b5cecead7d50e777"
+    "83050eeae2cd9595b9cd91681c72e5d53bb7d12f28dec9b2847ee70a3d7781fb1133aea3"
+    "b169f536ff5945ec0a76950e51beded0627bb78120617a2f0842e50e39")
+NONCE_OUT = bytes.fromhex(
+    "4fefc7c718693b57c87170ceba220382afbdd148c0a53b4a009ca63ad1f10148"
+    "3a6170c83a77f23d362a68dcb502802df7f98fa4f7a78b4082b211530e123430")
+LEADER_OUT = bytes.fromhex(
+    "fe682775f0fa232e909ddc9ec3210ea7a0ee6514cd8b0815190a08f7cef39854"
+    "63152e10dfad9ed6c09b641b6c1824498e77814a7c12e03096a63cd620564463")
+NONCE_PROOF = bytes.fromhex(
+    "f770f6769ae9871d42b970fc6254bb927c2181fff45897f241bd72221d86d33c"
+    "8df64c0a3c8cbb9aa52fef191d7202465c52df8d33727a38c7dc5d40864d7533"
+    "48a340f8afcbb3bb05d4a03f16b1080d")
+LEADER_PROOF = bytes.fromhex(
+    "0951ed3ef2065e4196d008b50a63bb3e2bdc9a64df67eff4e230b35429291def"
+    "476684114e074357a5c834bf79eacf583b6fe9fcd1d17f3719a31de97aa4da5e"
+    "4630b05421359e0b6e4a9bd76c6b920b")
+GOLDEN_LANES = {"ed25519_split": 4096, "ed25519_verify": 4096,
+                "vrf_verify": 2048, "gamma8": 2048, "kes_hash": 8192}
+GOLDEN_TAMPER_EVERY = 7      # lane j is tampered where j % 7 == 6
+# the reference's cross-era networks (tests/test_cardano_threadnet.py):
+# 3 nodes, 10-slot epochs, Byron PBFT into Shelley TPraos at epoch 2
+CARDANO_NET = {"fork": {"seed": 23, "run_s": 31.0, "ladder": False},
+               "ladder": {"seed": 7, "run_s": 39.0, "ladder": True}}
+CARDANO_NET_NODES, CARDANO_NET_EPOCH, CARDANO_NET_FORK = 3, 10, 2
 
 
 def log(*a):
@@ -3135,6 +3219,784 @@ def protocols_alone() -> dict:
     return pr
 
 
+def cardano_port(backend):
+    """The port's side of the reference's cross-era network
+    (tests/test_cardano_threadnet.py:36-146) with every node on `backend`:
+    a namespace with the names `cardano_network` reads from that test
+    module, so the JAX package's own module can stand in its place."""
+    import types
+
+    from ouroboros_tpu_torch import simharness as sim
+    from ouroboros_tpu_torch.chain.block import Point
+    from ouroboros_tpu_torch.consensus.hardfork.combinator import (
+        ERA_FIELD, HardForkState, hfc_forge)
+    from ouroboros_tpu_torch.consensus.header_validation import (
+        AnnTip, HeaderState)
+    from ouroboros_tpu_torch.consensus.headers import ProtocolHeader
+    from ouroboros_tpu_torch.consensus.ledger import ExtLedgerState
+    from ouroboros_tpu_torch.consensus.mempool import Mempool
+    from ouroboros_tpu_torch.eras.byron import (
+        CERT_UPDATE, ByronLedgerState, ByronTx, byron_sign_header,
+        make_byron_tx)
+    from ouroboros_tpu_torch.eras.cardano import (
+        BYRON, SHELLEY, cardano_block_decode, cardano_setup)
+    from ouroboros_tpu_torch.eras.shelley import (
+        ShelleyLedgerState, ShelleyTx, TPraosState, forge_tpraos_fields)
+    from ouroboros_tpu_torch.node import (BlockForging, NodeKernel,
+                                          connect_nodes)
+    from ouroboros_tpu_torch.node.blockchain_time import (
+        HardForkBlockchainTime)
+    from ouroboros_tpu_torch.storage import MockFS
+    from ouroboros_tpu_torch.storage.chaindb import ChainDB
+    from ouroboros_tpu_torch.utils import cbor
+
+    def enc_state(ext):
+        led, dep = ext.ledger, ext.header.chain_dep_state
+        if led.era == BYRON:
+            led_obj = [BYRON, [[list(e) for e in led.inner.utxo],
+                               list(led.inner.delegates), led.inner.slot,
+                               led.inner.tip.encode(),
+                               led.inner.update_epoch]]
+        else:
+            s = led.inner
+            led_obj = [SHELLEY, [
+                [[t, i, a, m, [list(av) for av in assets]]
+                 for t, i, a, m, assets in s.utxo],
+                [[a, p] for a, p in s.delegs],
+                [[p, v] for p, v in s.pools],
+                s.epoch,
+                [[p, st, v] for p, st, v in s.snap_mark],
+                [[p, st, v] for p, st, v in s.snap_set],
+                s.slot, s.tip.encode()]]
+        if dep.era == BYRON:
+            dep_obj = [BYRON, list(dep.inner)]
+        else:
+            t = dep.inner
+            dep_obj = [SHELLEY, [t.epoch, t.eta0, t.eta_v, t.eta_c,
+                                 [list(c) for c in t.counters]]]
+        tip = ext.header.tip
+        return [led_obj, list(led.transitions),
+                None if tip is None else [tip.slot, tip.block_no, tip.hash,
+                                          int(tip.is_ebb)],
+                dep_obj, list(dep.transitions)]
+
+    def dec_state(obj):
+        led_obj, led_tr, tip_obj, dep_obj, dep_tr = obj
+        if int(led_obj[0]) == BYRON:
+            u, d, slot, tipenc, upd = led_obj[1]
+            inner = ByronLedgerState(
+                tuple((bytes(t), int(i), bytes(a), int(m))
+                      for t, i, a, m in u),
+                tuple(bytes(x) for x in d), int(slot),
+                Point.decode(tipenc), int(upd))
+        else:
+            u, dl, pl, ep, sm, ss, slot, tipenc = led_obj[1]
+            inner = ShelleyLedgerState(
+                tuple((bytes(t), int(i), bytes(a), int(m),
+                       tuple((bytes(x), int(q)) for x, q in assets))
+                      for t, i, a, m, assets in u),
+                tuple((bytes(a), bytes(p)) for a, p in dl),
+                tuple((bytes(p), bytes(v)) for p, v in pl),
+                int(ep),
+                tuple((bytes(p), int(s), bytes(v)) for p, s, v in sm),
+                tuple((bytes(p), int(s), bytes(v)) for p, s, v in ss),
+                int(slot), Point.decode(tipenc))
+        led = HardForkState(int(led_obj[0]), inner,
+                            tuple(int(t) for t in led_tr))
+        if int(dep_obj[0]) == BYRON:
+            dep_inner = tuple(int(x) for x in dep_obj[1])
+        else:
+            ep, e0, ev, ec, cs = dep_obj[1]
+            dep_inner = TPraosState(int(ep), bytes(e0), bytes(ev),
+                                    bytes(ec),
+                                    tuple((bytes(p), int(c))
+                                          for p, c in cs))
+        dep = HardForkState(int(dep_obj[0]), dep_inner,
+                            tuple(int(t) for t in dep_tr))
+        tip = None if tip_obj is None else AnnTip(
+            int(tip_obj[0]), int(tip_obj[1]), bytes(tip_obj[2]),
+            bool(tip_obj[3]))
+        return ExtLedgerState(led, HeaderState(tip, dep))
+
+    def block_decode(raw):
+        return cardano_block_decode(cbor.loads(raw))
+
+    def tx_decode(obj):
+        # Byron txs (3 body fields + wits) against Shelley's (5 + wits)
+        return ByronTx.decode(obj) if len(obj) == 4 \
+            else ShelleyTx.decode(obj)
+
+    def make_node(i, eras, rules, nodes):
+        db = ChainDB.open(MockFS(), rules, enc_state, dec_state,
+                          block_decode, backend=backend)
+        ledger = rules.ledger
+        mempool = Mempool(ledger, lambda db=db: (db.current_ledger.ledger,
+                                                 db.tip_point()),
+                          backend=backend)
+        node = nodes[i]
+
+        def tpraos_forge(p, proof, hdr, n=node):
+            return forge_tpraos_fields(p, n["hot_key"], n["can_be_leader"],
+                                       proof, hdr)
+
+        # TPraos leadership and forging serve every Shelley-family era
+        cbl = {BYRON: i}
+        forges = {BYRON: lambda p, proof, hdr, n=node: byron_sign_header(
+            n["delegate_sk"], hdr)}
+        for era_ix in range(SHELLEY, len(eras)):
+            cbl[era_ix] = node["can_be_leader"]
+            forges[era_ix] = tpraos_forge
+        forging = BlockForging(issuer=i, can_be_leader=cbl,
+                               forge=hfc_forge(eras, forges))
+        btime = HardForkBlockchainTime(
+            lambda db=db, ledger=ledger:
+                ledger.summary(db.current_ledger.ledger))
+        return NodeKernel(
+            db, ledger, mempool, btime, [forging], label=f"cardano{i}",
+            backend=backend, chain_sync_window=8,
+            header_decode=ProtocolHeader.decode,
+            block_decode_obj=cardano_block_decode, tx_decode=tx_decode)
+
+    return types.SimpleNamespace(
+        sim=sim, cbor=cbor, ERA_FIELD=ERA_FIELD, CERT_UPDATE=CERT_UPDATE,
+        make_byron_tx=make_byron_tx, cardano_setup=cardano_setup,
+        connect_nodes=connect_nodes, _enc_state=enc_state,
+        _dec_state=dec_state, _block_decode=block_decode,
+        _make_node=make_node)
+
+
+def cardano_network(m, ladder: bool = False) -> list:
+    """The reference's cross-era network (tests/test_cardano_threadnet.py
+    :157 `test_real_era_network_crosses_fork`, or :212's era ladder with
+    Allegra and Mary one and two epochs after the fork), built from `m`
+    (`cardano_port(backend)`, or that test module for the JAX package):
+    3 nodes in a mesh, a Byron update proposal at 0.5 s announcing the
+    fork, run to about slot 40 (55 for the ladder).  Returns per node
+    (current chain, the immutable blocks' era tags, current ledger, the
+    immutable blocks' hashes); a thread that failed raises."""
+    cfg = CARDANO_NET["ladder" if ladder else "fork"]
+    kw = dict(allegra_epoch=CARDANO_NET_FORK + 1,
+              mary_epoch=CARDANO_NET_FORK + 2) if ladder else {}
+    eras, rules, nodes = m.cardano_setup(
+        CARDANO_NET_NODES, epoch_length=CARDANO_NET_EPOCH, **kw)
+    sim = m.sim
+
+    async def main():
+        kernels = [m._make_node(i, eras, rules, nodes)
+                   for i in range(CARDANO_NET_NODES)]
+        for k in kernels:
+            k.start()
+        for i in range(CARDANO_NET_NODES):
+            for j in range(i + 1, CARDANO_NET_NODES):
+                m.connect_nodes(kernels[i], kernels[j], delay=0.02)
+        # the fork is announced through the ledger: a Byron update
+        # proposal submitted to one node's mempool and diffused
+        upd = m.make_byron_tx(
+            inputs=[], outputs=[],
+            certs=[(m.CERT_UPDATE, CARDANO_NET_FORK.to_bytes(8, "big"),
+                    b"")],
+            signing_keys=[nodes[0]["genesis_sk"]])
+        await sim.sleep(0.5)
+        accepted, _rej = kernels[0].mempool.try_add_txs([upd])
+        if not accepted:
+            raise AssertionError("update proposal rejected by the mempool")
+        await sim.sleep(cfg["run_s"])
+        out = []
+        for k in kernels:
+            imm = [m._block_decode(raw)
+                   for _entry, raw in k.chain_db.immutable.stream()]
+            out.append((k.chain_db.current_chain.copy(),
+                        [b.header.get(m.ERA_FIELD) for b in imm],
+                        k.chain_db.current_ledger, [b.hash for b in imm]))
+            for t in k._threads:
+                try:
+                    t.poll()
+                except sim.AsyncCancelled:
+                    pass
+                except BaseException as e:
+                    raise AssertionError(
+                        f"{k.label}/{t.label} failed: {e!r}") from e
+            k.stop()
+        return out
+
+    return sim.run(main(), seed=cfg["seed"])
+
+
+def cardano_digest(m, results) -> list:
+    """Per node: the hashes of its chain's blocks (the immutable prefix's
+    decoded from storage), their era tags and its final ExtLedgerState
+    as `m._enc_state`'s CBOR bytes; what two runs must share."""
+    return [{"hashes": [h.hex() for h in imm_hashes]
+             + [b.hash.hex() for b in chain.blocks],
+             "tags": imm_tags + [b.header.get(m.ERA_FIELD)
+                                 for b in chain.blocks],
+             "state": m.cbor.dumps(m._enc_state(ext)).hex(),
+             "head": chain.head_block_no}
+            for chain, imm_tags, ext, imm_hashes in results]
+
+
+def cardano_checks(results, ladder: bool) -> list:
+    """The reference tests' own assertions on one network's results; the
+    ones that fail."""
+    from ouroboros_tpu_torch.consensus.hardfork.combinator import ERA_FIELD
+    from ouroboros_tpu_torch.eras.cardano import BYRON, MARY, SHELLEY
+    last = MARY if ladder else SHELLEY
+    transitions = tuple(range(CARDANO_NET_FORK,
+                              CARDANO_NET_FORK + last - BYRON))
+    bad = []
+    for n, (chain, imm_tags, ext, _imm) in enumerate(results):
+        tags = imm_tags + [b.header.get(ERA_FIELD) for b in chain.blocks]
+        if set(tags) != set(range(BYRON, last + 1)) or tags != sorted(tags):
+            bad.append(f"node {n}: era tags {tags}")
+        if (ext.ledger.era, ext.ledger.transitions) != (last, transitions):
+            bad.append(f"node {n}: era {ext.ledger.era}, transitions "
+                       f"{ext.ledger.transitions}")
+        if any(b.slot < CARDANO_NET_FORK * CARDANO_NET_EPOCH
+               for b in chain.blocks if b.header.get(ERA_FIELD) != BYRON):
+            bad.append(f"node {n}: a block past Byron before the fork slot")
+    heads = [r[0].head_block_no for r in results]
+    if max(heads) - min(heads) > 2 or (not ladder and min(heads) < 10):
+        bad.append(f"heads {heads}")
+    return bad
+
+
+def _flip(b: bytes, i: int, bit: int = 1) -> bytes:
+    return b[:i] + bytes([b[i] ^ bit]) + b[i + 1:]
+
+
+def _tile(bases: list, tampers: tuple, n: int) -> tuple:
+    """n lanes cycling through `bases`; lane j with j % 7 == 6 takes
+    tamper (j // 7) % len(tampers) of its base, so every tamper meets
+    every base.  Returns (lanes, tampered flags)."""
+    every = GOLDEN_TAMPER_EVERY
+    lanes, bad = [], []
+    for j in range(n):
+        x = bases[j % len(bases)]
+        hit = j % every == every - 1
+        lanes.append(tampers[(j // every) % len(tampers)](x) if hit else x)
+        bad.append(hit)
+    return lanes, bad
+
+
+class _CardCalls:
+    """Wraps a backend's batch methods to sum the host's seconds inside
+    them (outermost calls only), which on TorchBackend is the time the
+    node waited on the card."""
+    METHODS = ("verify_ed25519_batch", "verify_vrf_batch", "verify_kes_batch",
+               "vrf_betas_batch", "verify_mixed", "submit_window",
+               "finish_window")
+
+    def __init__(self, backend):
+        self.calls, self.secs, self._depth = 0, 0.0, 0
+        for name in self.METHODS:
+            if hasattr(backend, name):
+                setattr(backend, name, self._timed(getattr(backend, name)))
+
+    def _timed(self, fn):
+        def call(*a, **kw):
+            self._depth += 1
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self._depth -= 1
+                if not self._depth:
+                    self.calls += 1
+                    self.secs += time.perf_counter() - t
+        return call
+
+
+def _launched(before: dict) -> dict:
+    from ouroboros_tpu_torch.crypto import kernels as K
+    return {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES}
+
+
+def golden_leg(dev) -> dict:
+    """Phase 13 leg 1: the golden Shelley header's bytes through the
+    port.  Parsed and re-encoded byte for byte, validated through
+    `SC.validate_header` on a fresh TorchBackend; then its OCert Ed25519
+    request tiled to 4096 lanes, its two VRF certificates to 2048, its
+    Sum6 KES path's Blake2b jobs to 8192 and the two libsodium proofs to
+    2048 lanes of gamma8, every 7th lane tampered (a different field in
+    turn), each kernel held exactly against its plain version and every
+    lane's verdict against the CPU references (ed25519_ref, vrf_ref,
+    hashlib), every tampered lane rejected and every untampered beta the
+    libsodium output; `kernels.batch_verify_ed25519` and `vrf.batch_betas`
+    on the same lanes as a caller runs them.  Launches counted are those
+    of validate_header and the two batch calls, not of the comparisons.
+    The tiled lanes hold a handful of distinct inputs, so each CPU
+    reference runs once an input (functools.cache)."""
+    import dataclasses
+    import functools
+    import hashlib
+
+    import torch
+
+    from ouroboros_tpu_torch.crypto import (ed25519 as E, ed25519_ref,
+                                            edwards as ed, kernels as K,
+                                            vrf as V, vrf_ref)
+    from ouroboros_tpu_torch.crypto.torch_backend import TorchBackend
+    from ouroboros_tpu_torch.eras import shelley_cbor as SC
+
+    t_leg = time.perf_counter()
+    cuda = dev.type == "cuda"
+    alphas = tuple(hashlib.blake2b(bytes([i]), digest_size=32).digest()
+                   for i in (0, 1))
+    raw = bytes.fromhex(GOLDEN_HEADER_HEX)
+    hdr = SC.parse_header(raw)
+    b = hdr.body
+    if (b.block_no, b.slot) != (3, 9) or hdr.to_wrapped_cbor() != raw or \
+            (b.nonce_vrf.output, b.nonce_vrf.proof, b.leader_vrf.output,
+             b.leader_vrf.proof) != (NONCE_OUT, NONCE_PROOF, LEADER_OUT,
+                                     LEADER_PROOF):
+        raise AssertionError("golden header: parse or re-encoding differs")
+    counted = dict(K.LAUNCHES)
+    t = time.perf_counter()
+    if not SC.validate_header(hdr, *alphas, TorchBackend(dev)):
+        raise AssertionError("golden header rejected by TorchBackend")
+    validate_s = time.perf_counter() - t
+    validate_launches = _launched(counted)
+    if cuda and any(validate_launches[k] == 0 for k in MAIN_PATH):
+        raise AssertionError(f"golden header: a window kernel did not "
+                             f"launch {validate_launches}")
+    log(f"conformance leg 1: the golden Shelley header parses, re-encodes "
+        f"byte for byte and validates through TorchBackend in "
+        f"{validate_s:.3f} s, launches {validate_launches}")
+    vrf_nonce, vrf_leader, kes_req, ocert = SC.header_proof_requests(
+        hdr, *alphas)
+    aux = TorchBackend(dev)
+    edit = dataclasses.replace
+    L_bytes = ed.L.to_bytes(32, "little")
+    bad_pt = next(y for y in range(2, 100)
+                  if ed.decompress(y.to_bytes(32, "little")) is None
+                  ).to_bytes(32, "little")
+    max_err, rows = {}, {}
+
+    def exact(name, host):
+        with aux._on_stream():
+            args = tuple(aux._dev(a) for a in host)
+        got = getattr(K, name)(*args)
+        want = K.KERNELS[name].plain(*args)
+        if cuda:
+            torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        max_err[name] = err
+        if tuple(got.shape) != tuple(want.shape) or err:
+            raise AssertionError(f"golden {name}: kernel != plain version "
+                                 f"(max abs err {err})")
+        return got.cpu().numpy()
+
+    def agree(name, got, want, bad, expect=None):
+        """Every lane's verdict the reference's, every tampered lane
+        rejected, every untampered lane accepted (or its beta the
+        libsodium output)."""
+        wrong = [j for j in range(len(got)) if got[j] != want[j]]
+        if expect is None:
+            passed = [j for j in range(len(got)) if bad[j] and got[j]]
+            failed = [j for j in range(len(got)) if not bad[j]
+                      and not got[j]]
+        else:
+            passed = [j for j in range(len(got))
+                      if bad[j] and got[j] == expect[j]]
+            failed = [j for j in range(len(got))
+                      if not bad[j] and got[j] != expect[j]]
+        if wrong or passed or failed:
+            raise AssertionError(
+                f"golden {name}: lanes unlike the CPU reference "
+                f"{wrong[:8]}, tampered lanes passed {passed[:8]}, valid "
+                f"lanes failed {failed[:8]}")
+        rows[name] = {"lanes": len(got), "tampered": sum(bad)}
+        log(f"golden {name}: kernel == plain version on {len(got)} lanes "
+            f"(tolerance 0), every lane == the CPU reference, "
+            f"{sum(bad)} tampered lanes rejected")
+
+    # Ed25519: the OCert, through the split kernel and the full verify
+    n = GOLDEN_LANES["ed25519_split"]
+    ed_lanes, ed_bad = _tile([ocert], (
+        lambda r: edit(r, msg=_flip(r.msg, 0)),
+        lambda r: edit(r, sig=_flip(r.sig, 0)),          # R
+        lambda r: edit(r, sig=_flip(r.sig, 40)),         # s
+        lambda r: edit(r, vk=_flip(r.vk, 3)),            # A
+        lambda r: edit(r, sig=r.sig[:32] + L_bytes)), n)  # s >= L
+    ed_ref = functools.cache(ed25519_ref.verify)
+    want = [ed_ref(r.vk, r.msg, r.sig) for r in ed_lanes]
+    host, ok = aux._prep_ed(ed_lanes, n)
+    got = exact("ed25519_split", host).astype(bool) & ok
+    agree("ed25519_split", list(got), want, ed_bad)
+    n = GOLDEN_LANES["ed25519_verify"]
+    vks, msgs, sigs = ([getattr(r, f) for r in ed_lanes[:n]]
+                       for f in ("vk", "msg", "sig"))
+    arrays, parse = E.prepare_words_batch(vks, msgs, sigs)
+    got = exact("ed25519_verify", arrays).astype(bool) & parse
+    agree("ed25519_verify", list(got), want[:n], ed_bad[:n])
+    before = dict(K.LAUNCHES)
+    batch = K.batch_verify_ed25519(vks, msgs, sigs, device=dev)
+    batch_launches = _launched(before)
+    if batch != list(got):
+        raise AssertionError("golden: batch_verify_ed25519 != the kernel's "
+                             "lanes")
+    # ECVRF: both certificates, through vrf_verify
+    n = GOLDEN_LANES["vrf_verify"]
+    vrf_lanes, vrf_bad = _tile([vrf_nonce, vrf_leader], (
+        lambda r: edit(r, alpha=r.alpha + b"!"),
+        lambda r: edit(r, proof=_flip(r.proof, 0)),      # Gamma
+        lambda r: edit(r, proof=_flip(r.proof, 33)),     # c
+        lambda r: edit(r, proof=_flip(r.proof, 50)),     # s
+        lambda r: edit(r, vk=_flip(r.vk, 1))), n)        # Y
+    vrf_ref_ok = functools.cache(vrf_ref.verify)
+    want = [vrf_ref_ok(r.vk, r.alpha, r.proof) for r in vrf_lanes]
+    host, (p_ok, g_ok, s_ok, pf) = aux._prep_vrf(vrf_lanes, n)
+    oks, betas = V._finish(exact("vrf_verify", host), p_ok, g_ok, s_ok, pf,
+                           n)
+    agree("vrf_verify", oks, want, vrf_bad)
+    outs = [NONCE_OUT, LEADER_OUT]
+    if any(betas[j] != outs[j % 2] for j in range(n) if not vrf_bad[j]):
+        raise AssertionError("golden vrf_verify: an untampered beta is not "
+                             "the libsodium output")
+    # betas: the two libsodium proofs through gamma8
+    n = GOLDEN_LANES["gamma8"]
+    proofs, beta_bad = _tile([NONCE_PROOF, LEADER_PROOF], (
+        lambda p: _flip(p, 0),                           # another Gamma
+        lambda p: bad_pt + p[32:],                       # Gamma off curve
+        lambda p: _flip(p, 31, 0x80)), n)                # Gamma's sign
+
+    def beta_of(p):
+        try:
+            return vrf_ref.proof_to_hash(p)
+        except ValueError:
+            return None
+    beta_ref = functools.cache(beta_of)
+    host, dec = aux._prep_betas(proofs, n)
+    got = V._finish_betas(exact("gamma8", host), dec, n)
+    expect = [outs[j % 2] for j in range(n)]
+    agree("gamma8", got, [beta_ref(p) for p in proofs], beta_bad, expect)
+    before = dict(K.LAUNCHES)
+    batch = V.batch_betas(proofs, device=dev)
+    batch_launches = {k: v + batch_launches[k]
+                      for k, v in _launched(before).items()}
+    if batch != got:
+        raise AssertionError("golden: vrf.batch_betas != the kernel's lanes")
+    # Sum6 KES: the signature's Merkle path as Blake2b jobs, through
+    # kes_hash (its leaf signature is one more Ed25519 request)
+    n = GOLDEN_LANES["kes_hash"]
+    _e, _eo, _v, _vo, kes_msgs, kes_exps, _kc, _n = \
+        aux._split_mixed_device([kes_req])
+    jobs, kes_bad = _tile(list(zip(kes_msgs, kes_exps)), (
+        lambda j: (_flip(j[0], 0), j[1]),                # message's first
+        lambda j: (j[0], _flip(j[1], 31)),               # digest's last
+        lambda j: (_flip(j[0], 40), j[1])), n)           # a Merkle node
+    kes_ref = functools.cache(lambda m, e: hashlib.blake2b(
+        m, digest_size=32).digest() == e)
+    host = aux._prep_kes_hash([m for m, _e in jobs], [e for _m, e in jobs],
+                              n)
+    got = exact("kes_hash", host).astype(bool)
+    agree("kes_hash", list(got), [kes_ref(m, e) for m, e in jobs], kes_bad)
+    rows["kes_hash"]["jobs"] = len(kes_msgs)
+    leg_s = time.perf_counter() - t_leg
+    log(f"conformance leg 1: {leg_s:.3f} s")
+    return {"seconds": leg_s, "validate_s": validate_s, "lanes": rows,
+            "max_abs_err": max_err,
+            "launches": {k: validate_launches[k] + batch_launches[k]
+                         for k in K.LAUNCHES}}
+
+
+def cardano_leg(dev) -> dict:
+    """Phase 13 leg 2: the reference's two cross-era networks, each on a
+    fresh TorchBackend and on CppBackend; per node the block hashes, era
+    tags and encoded final ExtLedgerState equal, the reference's checks
+    met on both, each of the four window kernels launched on the card."""
+    from ouroboros_tpu_torch.crypto import kernels as K
+    from ouroboros_tpu_torch.crypto.cpp_backend import CppBackend
+    from ouroboros_tpu_torch.crypto.torch_backend import TorchBackend
+
+    out = {}
+    for name, cfg in CARDANO_NET.items():
+        runs = {}
+        for which in ("card", "cpp"):
+            backend = TorchBackend(dev) if which == "card" else CppBackend()
+            calls = _CardCalls(backend)
+            m = cardano_port(backend)
+            before = dict(K.LAUNCHES)
+            t = time.perf_counter()
+            res = cardano_network(m, cfg["ladder"])
+            runs[which] = {"wall_s": time.perf_counter() - t,
+                           "calls": calls.calls, "call_s": calls.secs,
+                           "launches": _launched(before),
+                           "digest": cardano_digest(m, res),
+                           "failed_checks": cardano_checks(res,
+                                                           cfg["ladder"])}
+        card, cpp = runs["card"], runs["cpp"]
+        missing = [k for k in MAIN_PATH if card["launches"][k] == 0] \
+            if dev.type == "cuda" else []
+        same = card["digest"] == cpp["digest"]
+        if not same or card["failed_checks"] or cpp["failed_checks"] or \
+                missing:
+            raise AssertionError(
+                f"conformance leg 2 {name}: card == CppBackend {same}; "
+                f"failed checks {card['failed_checks']} / "
+                f"{cpp['failed_checks']}; kernels not launched {missing}")
+        heads = [d["head"] for d in card["digest"]]
+        out[name] = {
+            "heads": heads, "era_tags": card["digest"][0]["tags"],
+            "card_s": card["wall_s"], "card_calls": card["calls"],
+            "card_call_s": card["call_s"], "cpp_s": cpp["wall_s"],
+            "cpp_call_s": cpp["call_s"], "launches": card["launches"]}
+        log(f"conformance leg 2 {name}: {CARDANO_NET_NODES} nodes, card == "
+            f"CppBackend (block hashes, era tags, encoded final state of "
+            f"every node), the reference's checks pass on both; heads "
+            f"{heads}; {card['wall_s']:.3f} s on the card ({card['calls']} "
+            f"card calls, {card['call_s']:.3f} s), {cpp['wall_s']:.3f} s "
+            f"on CppBackend; launches {card['launches']}")
+    return out
+
+
+def rekey_setup():
+    """tests/test_threadnet_scale.py's rekeying configuration: two pools,
+    k = 3, f = 1/2, 30-slot epochs, 8-slot KES periods at depth 4.
+    Returns (cfg, protocol, ledger, pools, ExtLedgerRules)."""
+    from fractions import Fraction
+
+    from ouroboros_tpu_torch.consensus.ledger import ExtLedgerRules
+    from ouroboros_tpu_torch.eras.shelley import (TPraosConfig,
+                                                  shelley_genesis_setup)
+    cfg = TPraosConfig(k=3, f=Fraction(1, 2), epoch_length=30,
+                       slots_per_kes_period=8, kes_depth=4,
+                       max_kes_evolutions=14)
+    protocol, ledger, pools = shelley_genesis_setup(2, cfg, seed=b"rekey")
+    return cfg, protocol, ledger, pools, ExtLedgerRules(protocol, ledger)
+
+
+def forge_span(protocol, ledger, ext, pools, state, prev, start_slot,
+               n_blocks, backend):
+    """Forge n_blocks from start_slot on, the first of `pools` that leads
+    a slot signing it, each block applied to `state` through `backend`
+    (a header the OCert rules refuse raises HeaderError).  Returns
+    (blocks, state, last header, next slot)."""
+    from ouroboros_tpu_torch.consensus.headers import (ProtocolBlock,
+                                                       make_header)
+    from ouroboros_tpu_torch.eras.shelley import forge_tpraos_fields
+    blocks = []
+    slot = start_slot
+    while len(blocks) < n_blocks:
+        view = ledger.forecast_view(state.ledger, slot)
+        ticked = protocol.tick_chain_dep_state(
+            state.header.chain_dep_state, view, slot)
+        for p in pools:
+            lead = protocol.check_is_leader(p["can_be_leader"], slot,
+                                            ticked, view)
+            if lead is None:
+                continue
+            h = make_header(prev, slot, (), issuer=0)
+            h = forge_tpraos_fields(protocol, p["hot_key"],
+                                    p["can_be_leader"], lead, h)
+            blk = ProtocolBlock(h, ())
+            state = ext.tick_then_apply(state, blk, backend=backend)
+            blocks.append(blk)
+            prev = h
+            break
+        slot += 1
+    return blocks, state, prev, slot
+
+
+def rekey(cfg, pools, ix, at_slot, counter):
+    """Issue pool ix a fresh KES key and an OCert at `counter`, starting
+    at the KES period of `at_slot`."""
+    import hashlib
+    from dataclasses import replace
+
+    from ouroboros_tpu_torch.consensus.protocols.praos import HotKey
+    from ouroboros_tpu_torch.crypto import kes
+    from ouroboros_tpu_torch.eras.shelley import make_ocert
+    p = pools[ix]
+    key = kes.KesSignKey(cfg.kes_depth, hashlib.blake2b(
+        b"rekey-seed:%d:%d" % (ix, counter), digest_size=32).digest())
+    ocert = make_ocert(p["keys"].cold_sk, key.verification_key,
+                       counter=counter,
+                       kes_period_start=at_slot // cfg.slots_per_kes_period)
+    pools[ix] = dict(p, hot_key=HotKey(key),
+                     can_be_leader=replace(p["can_be_leader"], ocert=ocert))
+
+
+def rekey_runs(backend) -> dict:
+    """The three rekeying cases of tests/test_threadnet_scale.py on
+    `backend`: a pool rekeyed at counter 1 mid-run (24 blocks, replayed
+    from genesis by `validate_blocks_batched`), a jump to counter 2 and a
+    stale counter-0 certificate once counter 1 is on the chain, each of
+    the last two refused.  Returns what two backends must share."""
+    import copy
+
+    from ouroboros_tpu_torch.consensus.batch import validate_blocks_batched
+    from ouroboros_tpu_torch.consensus.header_validation import HeaderError
+    cfg, protocol, ledger, pools, ext = rekey_setup()
+    b1, state, prev, slot = forge_span(protocol, ledger, ext, pools,
+                                       ext.initial_state(), None, 0, 12,
+                                       backend)
+    rekey(cfg, pools, 0, slot, 1)
+    b2, _state, _prev, _slot = forge_span(protocol, ledger, ext, pools,
+                                          state, prev, slot, 12, backend)
+    res = validate_blocks_batched(ext, b1 + b2, ext.initial_state(),
+                                  backend=backend)
+    pid = pools[0]["can_be_leader"].pool_id
+    out = {"hashes": [b.hash.hex() for b in b1 + b2],
+           "all_valid": res.all_valid,
+           "state_hash": res.final_state.ledger.state_hash().hex(),
+           "counter": res.final_state.header.chain_dep_state.counter_of(pid)}
+    for case, counter in (("jump", 2), ("stale", 1)):
+        cfg, protocol, ledger, pools, ext = rekey_setup()
+        stale = dict(pools[0], hot_key=copy.deepcopy(pools[0]["hot_key"]))
+        _b, state, prev, slot = forge_span(protocol, ledger, ext, pools,
+                                           ext.initial_state(), None, 0, 6,
+                                           backend)
+        rekey(cfg, pools, 0, slot, counter)
+        pid = pools[0]["can_be_leader"].pool_id
+        while case == "stale" and \
+                state.header.chain_dep_state.counter_of(pid) != 1:
+            _b, state, prev, slot = forge_span(protocol, ledger, ext, pools,
+                                               state, prev, slot, 1, backend)
+        try:
+            forge_span(protocol, ledger, ext,
+                       [pools[0] if case == "jump" else stale], state, prev,
+                       slot, 1, backend)
+        except HeaderError as e:
+            out[case] = str(e)
+        else:
+            out[case] = None
+    return out
+
+
+def restart_leg(dev) -> dict:
+    """Phase 13 leg 3: the restart configuration with every node on one
+    fresh TorchBackend and on CppBackend (equal chains and encoded
+    ledgers, the reference's checks met), and the rekeying cases on both
+    (equal blocks and final state, counter 1 recorded, the counter jump
+    and the stale certificate refused with the same errors)."""
+    from ouroboros_tpu_torch.crypto import kernels as K
+    from ouroboros_tpu_torch.crypto.cpp_backend import CppBackend
+    from ouroboros_tpu_torch.crypto.torch_backend import TorchBackend
+    from ouroboros_tpu_torch.testing import ThreadNetConfig, run_threadnet
+    from ouroboros_tpu_torch.testing import threadnet as TN
+    from ouroboros_tpu_torch.utils import cbor
+
+    # tests/test_threadnet_scale.py's: 4 mock-Praos nodes in a mesh for 60
+    # slots, node 1 restarted from its own files at slot 25, node 2 at 40
+    cfg = ThreadNetConfig(n_nodes=4, n_slots=60, k=8, f=0.5, seed=11,
+                          restart_plan=((25, 1), (40, 2)))
+    runs = {}
+    real = TN.OpensslBackend
+    for which in ("card", "cpp"):
+        backend = TorchBackend(dev) if which == "card" else CppBackend()
+        calls = _CardCalls(backend)
+        TN.OpensslBackend = lambda: backend
+        before = dict(K.LAUNCHES)
+        t = time.perf_counter()
+        try:
+            r = run_threadnet(cfg)
+        finally:
+            TN.OpensslBackend = real
+        heads = [c.head_block_no for c in r.chains]
+        runs[which] = {
+            "wall_s": time.perf_counter() - t, "calls": calls.calls,
+            "call_s": calls.secs, "launches": _launched(before),
+            "heads": heads,
+            "chains": [[p.encode() for p in c.points()] for c in r.chains],
+            "ledgers": [cbor.dumps(TN.PraosNetworkFactory.enc_state(x))
+                        for x in r.ledgers],
+            "ok": not r.failures and r.common_prefix_ok(cfg.k)
+            and r.min_length() >= 15 and max(heads) - min(heads) <= 3}
+    card, cpp = runs["card"], runs["cpp"]
+    missing = [k for k in MAIN_PATH if card["launches"][k] == 0] \
+        if dev.type == "cuda" else []
+    same = (card["chains"], card["ledgers"]) == (cpp["chains"],
+                                                 cpp["ledgers"])
+    if not same or not card["ok"] or not cpp["ok"] or missing:
+        raise AssertionError(
+            f"conformance leg 3 restarts: card == CppBackend {same}, the "
+            f"reference's checks {card['ok']} / {cpp['ok']}, heads "
+            f"{card['heads']} / {cpp['heads']}; kernels not launched "
+            f"{missing}")
+    log(f"conformance leg 3 restarts: {cfg.n_nodes} nodes, {cfg.n_slots} "
+        f"slots, restarts {cfg.restart_plan}: card == CppBackend (chains, "
+        f"encoded ledgers), heads {card['heads']}; {card['wall_s']:.3f} s "
+        f"on the card ({card['calls']} card calls, {card['call_s']:.3f} "
+        f"s), {cpp['wall_s']:.3f} s on CppBackend; launches "
+        f"{card['launches']}")
+    rk = {}
+    for which in ("card", "cpp"):
+        backend = TorchBackend(dev) if which == "card" else CppBackend()
+        calls = _CardCalls(backend)
+        before = dict(K.LAUNCHES)
+        t = time.perf_counter()
+        rk[which] = {"result": rekey_runs(backend),
+                     "wall_s": time.perf_counter() - t,
+                     "calls": calls.calls, "call_s": calls.secs,
+                     "launches": _launched(before)}
+    got, want = rk["card"]["result"], rk["cpp"]["result"]
+    if got != want or not got["all_valid"] or got["counter"] != 1 or \
+            "jumps past" not in (got["jump"] or "") or \
+            "regressed" not in (got["stale"] or ""):
+        raise AssertionError(f"conformance leg 3 rekeying: card {got}, "
+                             f"CppBackend {want}")
+    log(f"conformance leg 3 rekeying: {len(got['hashes'])} blocks across a "
+        f"rekey valid, counter 1 recorded, the jump ({got['jump']!r}) and "
+        f"the stale certificate ({got['stale']!r}) refused, card == "
+        f"CppBackend; {rk['card']['wall_s']:.3f} s on the card "
+        f"({rk['card']['calls']} card calls, {rk['card']['call_s']:.3f} s),"
+        f" {rk['cpp']['wall_s']:.3f} s on CppBackend; launches "
+        f"{rk['card']['launches']}")
+    return {"restart": {
+                "nodes": cfg.n_nodes, "slots": cfg.n_slots,
+                "restart_plan": [list(x) for x in cfg.restart_plan],
+                "heads": card["heads"], "card_s": card["wall_s"],
+                "card_calls": card["calls"], "card_call_s": card["call_s"],
+                "cpp_s": cpp["wall_s"], "cpp_call_s": cpp["call_s"],
+                "launches": card["launches"]},
+            "rekey": {
+                "blocks": len(got["hashes"]), "jump": got["jump"],
+                "stale": got["stale"], "card_s": rk["card"]["wall_s"],
+                "card_calls": rk["card"]["calls"],
+                "card_call_s": rk["card"]["call_s"],
+                "cpp_s": rk["cpp"]["wall_s"],
+                "cpp_call_s": rk["cpp"]["call_s"],
+                "launches": rk["card"]["launches"]}}
+
+
+def conformance_phase(card: str, dev) -> dict:
+    """Phase 13: the reference's conformance surface on the card (the
+    golden header's bytes through the window kernels, the cross-era
+    networks, restarts and rekeying).  Returns the `conformance` line's
+    dict; launches are those of the counted calls of the three legs."""
+    from ouroboros_tpu_torch.crypto.backend import GLOBAL_BETA_CACHE
+    t_phase = time.perf_counter()
+    GLOBAL_BETA_CACHE.clear()
+    golden = golden_leg(dev)
+    nets = cardano_leg(dev)
+    scale = restart_leg(dev)
+    legs = [golden] + list(nets.values()) + list(scale.values())
+    totals = {k: sum(leg["launches"][k] for leg in legs)
+              for k in golden["launches"]}
+    phase_s = time.perf_counter() - t_phase
+    log(f"conformance phase: {phase_s:.3f} s, launches {totals}")
+    return {"seconds": phase_s, "golden": golden, "cardano": nets, **scale,
+            "launches": totals, "card": card}
+
+
+def conformance_alone() -> dict:
+    """Phase 13 alone, on the card; prints and returns the `conformance`
+    line's dict.
+
+        python3 -c "import chip_smoke; chip_smoke.conformance_alone()"
+    """
+    import torch
+
+    from ouroboros_tpu_torch.crypto import kernels as K
+    card = smi("name,power.limit")
+    log("card:", card)
+    K.library()
+    cf = conformance_phase(card, torch.device("cuda"))
+    print(json.dumps({"conformance": cf}))
+    return cf
+
+
 def replay_profiled(ext, chain) -> dict:
     """One more replay of the valid chain under torch.profiler, apart from
     the timed runs: the card's busy seconds and the kernels that took
@@ -3523,7 +4385,12 @@ def main() -> int:
                          df.pop("fleets")["_fleet_config()"],
                          sh.pop("multichip_log"))
 
-    # -- 13. the standalone batch-verify path -------------------------------
+    # -- 13. the reference's conformance surface ----------------------------
+    cf = conformance_phase(card, dev)
+    for name, err in cf["golden"]["max_abs_err"].items():
+        max_err[name] = max(max_err[name], err)
+
+    # -- 14. the standalone batch-verify path -------------------------------
     K.reset_launches()
     t = time.perf_counter()
     probe_rows = perf_probe.main(PROBE_ARGS)
@@ -3535,7 +4402,7 @@ def main() -> int:
         raise AssertionError(f"kernels not launched on the probe's path: "
                              f"{missing}")
 
-    # -- 14. the field microbenchmark path ----------------------------------
+    # -- 15. the field microbenchmark path ----------------------------------
     # every (lanes, op, k) its runs launch, and the first n - 3 lanes of
     # each lane count, exactly against the plain versions; a sample of the
     # JAX shape's lanes against Python integers
@@ -3637,7 +4504,7 @@ def main() -> int:
                              f"{not_dev}")
     rp["profiled"] = replay_profiled(*replayed[:2])
 
-    # -- 15. report -----------------------------------------------------------
+    # -- 16. report -----------------------------------------------------------
     serve_launches = sv["card"]["saturated"]["launches"]
     for entry in report:
         name = entry["name"]
@@ -3647,6 +4514,7 @@ def main() -> int:
         entry["node_launches"] = nd["launches"][name]
         entry["diffusion_launches"] = df["launches"][name]
         entry["protocols_launches"] = pr["launches"][name]
+        entry["conformance_launches"] = cf["launches"][name]
         entry["sharded_launches"] = (sh["batch_verify"]["launches"][name]
                                      if name == "ed25519_verify"
                                      else sh["launches"][0][name])
@@ -3682,6 +4550,7 @@ def main() -> int:
     print(json.dumps({"node": nd}))
     print(json.dumps({"diffusion": df}))
     print(json.dumps({"protocols": pr}))
+    print(json.dumps({"conformance": cf}))
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -168,3 +168,8 @@ def sha512(*chunks: bytes) -> bytes:
 
 def sha512_int(*chunks: bytes) -> int:
     return int.from_bytes(sha512(*chunks), "little")
+
+
+def is_on_curve(p) -> bool:
+    x, y = to_affine(p)
+    return (-x * x + y * y - 1 - D * x * x % P * y % P * y) % P == 0

@@ -20,9 +20,9 @@ the hash chain as Blake2b jobs (verify_walk).
 A copy of `ouroboros_tpu/crypto/kes.py` (the port imports nothing of
 the JAX package), with key evolution: `KesSignKey.evolve` steps the key
 one period, deriving the right subtree from the retained seed and
-dropping expired material, as the forging HotKey needs.  Left out: the
-one-shot `verify`, which the port does not use (`verify_prepare` and
-`verify_walk` carry its checks).
+dropping expired material, as the forging HotKey needs.  The one-shot
+`verify` is the conformance oracle; the batched paths split its checks
+into `verify_prepare` and `verify_walk`.
 """
 from __future__ import annotations
 
@@ -139,6 +139,29 @@ def vk_of(depth: int, seed: bytes) -> bytes:
         return dsign.public_key(seed)
     sl, sr = expand_seed(seed)
     return _blake2b_256(vk_of(depth - 1, sl), vk_of(depth - 1, sr))
+
+
+def verify(depth: int, vk: bytes, period: int, msg: bytes,
+           sig: KesSig) -> bool:
+    """Pure KES verify: hash-path check + one ed25519 verify at the leaf."""
+    if not 0 <= period < total_periods(depth):
+        return False
+    if len(sig.merkle) != depth:
+        return False
+    # walk root -> leaf; sig.merkle is leaf-first, so traverse reversed
+    expect_vk = vk
+    t = period
+    half = total_periods(depth) // 2
+    for vkl, vkr in reversed(sig.merkle):
+        if _blake2b_256(vkl, vkr) != expect_vk:
+            return False
+        if t < half:
+            expect_vk = vkl
+        else:
+            expect_vk = vkr
+            t -= half
+        half //= 2
+    return dsign.verify(expect_vk, msg, sig.leaf_sig)
 
 
 def verify_walk(depth: int, vk: bytes, period: int, sig: KesSig):

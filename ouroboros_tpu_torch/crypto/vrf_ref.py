@@ -53,6 +53,21 @@ def prove(sk: bytes, alpha: bytes) -> bytes:
         + int.to_bytes(s, 32, "little")
 
 
+def prove_pure(sk: bytes, alpha: bytes) -> bytes:
+    """The spec's prover, each product a plain double-and-add ladder:
+    the conformance oracle that `prove` (fixed-base products from a
+    table) must equal byte for byte."""
+    x, prefix = _secret_expand(sk)
+    Y = ed.compress(ed.scalar_mult(x, BASE))
+    H = _hash_to_curve(Y, alpha)
+    Gamma = ed.scalar_mult(x, H)
+    k = ed.sha512_int(prefix, ed.compress(H)) % L
+    c = _hash_points(H, Gamma, ed.scalar_mult(k, BASE), ed.scalar_mult(k, H))
+    s = (k + c * x) % L
+    return ed.compress(Gamma) + int.to_bytes(c, 16, "little") \
+        + int.to_bytes(s, 32, "little")
+
+
 def _hash_to_curve_bytes(vk: bytes, alpha: bytes) -> bytes:
     """Compressed Edwards y (sign 0) of the Elligator2 map, BEFORE
     cofactor clearing (Montgomery curve v^2 = u^3 + A u^2 + u, A = 486662;
@@ -121,3 +136,7 @@ def proof_to_hash(pi: bytes) -> bytes:
         raise ValueError("invalid proof")
     Gamma, _, _ = decoded
     return ed.sha512(SUITE, b"\x03", ed.compress(ed.scalar_mult(8, Gamma)))
+
+
+def output(sk: bytes, alpha: bytes) -> bytes:
+    return proof_to_hash(prove(sk, alpha))

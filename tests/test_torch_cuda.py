@@ -557,3 +557,58 @@ def test_txsubmission2_relay_between_card_mempools(dev):
     assert got == [None] * 32
     assert [e.txid for e in mp2.get_snapshot().entries] == \
         [e.txid for e in mp1.get_snapshot().entries]
+
+
+def test_golden_header_through_torch_backend_on_the_card(dev):
+    """chip_smoke.py's conformance phase, leg 1, first part: the golden
+    Shelley header made by the real Cardano crypto stack (libsodium
+    ECVRF, Sum6 KES, Ed25519) validates through TorchBackend on the
+    card, each of the four window kernels launched."""
+    import chip_smoke
+    from ouroboros_tpu_torch.eras import shelley_cbor as SC
+    alphas = [hashlib.blake2b(bytes([i]), digest_size=32).digest()
+              for i in (0, 1)]
+    hdr = SC.parse_header(bytes.fromhex(chip_smoke.GOLDEN_HEADER_HEX))
+    K.reset_launches()
+    assert SC.validate_header(hdr, *alphas, TorchBackend(device=dev))
+    assert all(K.LAUNCHES[k] > 0 for k in chip_smoke.MAIN_PATH)
+    bad = SC.RealShelleyHeader(hdr.body, hdr.kes_sig[:-1] + bytes(
+        [hdr.kes_sig[-1] ^ 1]), hdr.body_bytes)
+    assert not SC.validate_header(bad, *alphas, TorchBackend(device=dev))
+
+
+def test_golden_lanes_tiled_and_tampered_on_the_card(dev, monkeypatch):
+    """chip_smoke.py's conformance phase, leg 1, at 97 lanes a kernel: the
+    golden header's OCert, VRF certificates, KES path jobs and the two
+    libsodium proofs tiled, every 7th lane tampered, each kernel exactly
+    its plain version, every lane the CPU references' verdict, every
+    untampered beta the libsodium output (golden_leg raises otherwise)."""
+    import chip_smoke
+    monkeypatch.setattr(chip_smoke, "GOLDEN_LANES",
+                        {k: 97 for k in chip_smoke.GOLDEN_LANES})
+    out = chip_smoke.golden_leg(dev)
+    assert set(out["lanes"]) == set(chip_smoke.GOLDEN_LANES)
+    assert all(err == 0 for err in out["max_abs_err"].values())
+    assert out["launches"]["ed25519_verify"] == 1
+    assert out["launches"]["gamma8"] >= 2
+
+
+def test_cardano_network_crosses_the_fork_on_the_card(dev):
+    """chip_smoke.py's conformance phase, leg 2, the fork crossing only:
+    the reference's 3-node Byron PBFT -> Shelley TPraos network on a
+    fresh TorchBackend, every node's block hashes, era tags and encoded
+    final state those of the same network on CppBackend, the reference's
+    checks met, the four window kernels launched."""
+    import chip_smoke
+    from ouroboros_tpu_torch.crypto.cpp_backend import CppBackend
+    digests = {}
+    for which, backend in (("card", TorchBackend(device=dev)),
+                           ("cpp", CppBackend())):
+        m = chip_smoke.cardano_port(backend)
+        K.reset_launches()
+        res = chip_smoke.cardano_network(m)
+        assert chip_smoke.cardano_checks(res, False) == []
+        digests[which] = chip_smoke.cardano_digest(m, res)
+        if which == "card":
+            assert all(K.LAUNCHES[k] > 0 for k in chip_smoke.MAIN_PATH)
+    assert digests["card"] == digests["cpp"]

@@ -1,11 +1,11 @@
 """The port's remaining mini-protocols (`ouroboros_tpu_torch.network.
 protocols.{hello,txsubmission2,tipsample,localtxmonitor,examples}`) and
 its protocol instantiations: the cases of tests/test_protocols_extra.py,
-tests/test_protocol_examples.py and tests/test_protocol_instances.py (all
-but its codec sweep, which the static analyser drives), run against the
-port's copies; tests/test_golden_wire.py's pinned digests that the other
-port tests do not pin (TxSubmission2, LocalTxMonitor, TipSample and the
-per-era transaction and block encodings); every message of the five
+tests/test_protocol_examples.py and tests/test_protocol_instances.py
+(its codec sweep over the specs the port's analyser discovers), run
+against the port's copies; tests/test_golden_wire.py's pinned digests
+that the other port tests do not pin (TxSubmission2, LocalTxMonitor,
+TipSample and the per-era transaction and block encodings); every message of the five
 protocols with numpy-seeded fields, encoded by both packages to the same
 bytes and decoded back; and a seeded TxSubmission2 relay and TipSample
 run in both packages' simulators with the same results and end times.
@@ -266,7 +266,7 @@ def test_ping_pong_agency_enforced():
     with pytest.raises(ProtocolError):
         sim.run(main())
 
-# -- tests/test_protocol_instances.py (its codec sweep needs the analyser) ---
+# -- tests/test_protocol_instances.py -----------------------------------------
 
 BACKEND = OpensslBackend()
 
@@ -666,3 +666,133 @@ def test_relay_and_tip_sample_equal_the_jax_packages(seed):
     ref = _relay_and_sample("ouroboros_tpu", seed)
     assert port == ref
     assert len(port[0]) == 23
+
+
+# -- tests/test_protocol_instances.py's message inventory sweep ------------
+# Driven by ouro-lint's registry discovery (the port's analysis/protocol_pass):
+# every message named in ANY ProtocolSpec's transition relation must have a
+# sample here that round-trips through the spec's paired codec.  Adding a
+# message without a codec registration fails the analyzer (PROTO005); adding
+# one without a roundtrip sample fails this sweep — so new messages can't
+# ship untested.
+
+from ouroboros_tpu_torch.chain import Point, Tip, make_block, point_of
+from ouroboros_tpu_torch.network.protocols import (
+    blockfetch, chainsync, examples, handshake, keepalive, localstatequery,
+    localtxmonitor, localtxsubmission, tipsample, txsubmission,
+    txsubmission2,
+)
+
+
+def _sweep_samples():
+    """(spec name, message name) -> non-empty list of sample instances."""
+    b0 = make_block(None, 1, body=[b"tx0"])
+    b1 = make_block(b0, 3, body=[b"tx1"])
+    p, p1 = point_of(b0), point_of(b1)
+    tip = Tip(p1, b1.block_no)
+    cs, bf, tx, tx2 = chainsync, blockfetch, txsubmission, txsubmission2
+    hs, ka, ts = handshake, keepalive, tipsample
+    lsq, ltm, lts, ex = (localstatequery, localtxmonitor,
+                         localtxsubmission, examples)
+    return {
+        ("ping-pong", "MsgPing"): [ex.MsgPing()],
+        ("ping-pong", "MsgPong"): [ex.MsgPong()],
+        ("ping-pong", "MsgPingDone"): [ex.MsgPingDone()],
+        ("req-resp", "MsgReq"): [ex.MsgReq([1, "two"])],
+        ("req-resp", "MsgResp"): [ex.MsgResp({"n": 3})],
+        ("req-resp", "MsgReqDone"): [ex.MsgReqDone()],
+        ("chain-sync", "MsgRequestNext"): [cs.MsgRequestNext()],
+        ("chain-sync", "MsgAwaitReply"): [cs.MsgAwaitReply()],
+        ("chain-sync", "MsgRollForward"): [cs.MsgRollForward(b0.header, tip)],
+        ("chain-sync", "MsgRollBackward"): [cs.MsgRollBackward(p, tip)],
+        ("chain-sync", "MsgFindIntersect"):
+            [cs.MsgFindIntersect((p, Point.genesis()))],
+        ("chain-sync", "MsgIntersectFound"): [cs.MsgIntersectFound(p, tip)],
+        ("chain-sync", "MsgIntersectNotFound"):
+            [cs.MsgIntersectNotFound(tip)],
+        ("chain-sync", "MsgDone"): [cs.MsgDone()],
+        ("block-fetch", "MsgRequestRange"): [bf.MsgRequestRange(p, p1)],
+        ("block-fetch", "MsgClientDone"): [bf.MsgClientDone()],
+        ("block-fetch", "MsgStartBatch"): [bf.MsgStartBatch()],
+        ("block-fetch", "MsgNoBlocks"): [bf.MsgNoBlocks()],
+        ("block-fetch", "MsgBlock"): [bf.MsgBlock(b0)],
+        ("block-fetch", "MsgBatchDone"): [bf.MsgBatchDone()],
+        ("tx-submission", "MsgRequestTxIds"):
+            [tx.MsgRequestTxIds(True, 0, 5),   # both branch arms
+             tx.MsgRequestTxIds(False, 2, 3)],
+        ("tx-submission", "MsgReplyTxIds"):
+            [tx.MsgReplyTxIds(((b"id1", 100), (b"id2", 200)))],
+        ("tx-submission", "MsgRequestTxs"): [tx.MsgRequestTxs((b"id1",))],
+        ("tx-submission", "MsgReplyTxs"): [tx.MsgReplyTxs((b"txbytes",))],
+        ("tx-submission", "MsgDone"): [tx.MsgDone()],
+        ("tx-submission-2", "MsgHello"): [tx2.MsgHello()],
+        ("tx-submission-2", "MsgRequestTxIds"):
+            [tx2.MsgRequestTxIds(True, 0, 5)],
+        ("tx-submission-2", "MsgReplyTxIds"):
+            [tx2.MsgReplyTxIds(((b"id1", 100),))],
+        ("tx-submission-2", "MsgRequestTxs"): [tx2.MsgRequestTxs((b"id1",))],
+        ("tx-submission-2", "MsgReplyTxs"): [tx2.MsgReplyTxs((b"t",))],
+        ("tx-submission-2", "MsgDone"): [tx2.MsgDone()],
+        ("handshake", "MsgProposeVersions"):
+            [hs.MsgProposeVersions(((7, {"net": 42}), (8, None)))],
+        ("handshake", "MsgAcceptVersion"):
+            [hs.MsgAcceptVersion(8, {"net": 42})],
+        ("handshake", "MsgRefuse"):
+            [hs.MsgRefuse(hs.RefuseVersionMismatch((7, 8))),
+             hs.MsgRefuse(hs.RefuseHandshakeDecodeError(8, "bad")),
+             hs.MsgRefuse(hs.RefuseRefused(8, "nope"))],
+        ("keep-alive", "MsgKeepAlive"): [ka.MsgKeepAlive(77)],
+        ("keep-alive", "MsgKeepAliveResponse"):
+            [ka.MsgKeepAliveResponse(77)],
+        ("keep-alive", "MsgDone"): [ka.MsgDone()],
+        ("tip-sample", "MsgFollowTip"): [ts.MsgFollowTip(2, 9)],
+        ("tip-sample", "MsgNextTip"): [ts.MsgNextTip(tip)],
+        ("tip-sample", "MsgNextTipDone"): [ts.MsgNextTipDone(tip)],
+        ("tip-sample", "MsgDone"): [ts.MsgDone()],
+        ("local-state-query", "MsgAcquire"):
+            [lsq.MsgAcquire(p), lsq.MsgAcquire(None)],
+        ("local-state-query", "MsgAcquired"): [lsq.MsgAcquired()],
+        ("local-state-query", "MsgFailure"): [lsq.MsgFailure("behind")],
+        ("local-state-query", "MsgQuery"): [lsq.MsgQuery(["get", "tip"])],
+        ("local-state-query", "MsgResult"): [lsq.MsgResult({"slot": 9})],
+        ("local-state-query", "MsgReAcquire"): [lsq.MsgReAcquire(None)],
+        ("local-state-query", "MsgRelease"): [lsq.MsgRelease()],
+        ("local-state-query", "MsgDone"): [lsq.MsgDone()],
+        ("local-tx-monitor", "MsgRequestTx"): [ltm.MsgRequestTx()],
+        ("local-tx-monitor", "MsgReplyTx"): [ltm.MsgReplyTx(b"tx")],
+        ("local-tx-monitor", "MsgDone"): [ltm.MsgDone()],
+        ("local-tx-submission", "MsgSubmitTx"): [lts.MsgSubmitTx(b"tx")],
+        ("local-tx-submission", "MsgAcceptTx"): [lts.MsgAcceptTx()],
+        ("local-tx-submission", "MsgRejectTx"): [lts.MsgRejectTx("bad")],
+        ("local-tx-submission", "MsgDone"): [lts.MsgDone()],
+    }
+
+
+def test_codec_roundtrip_sweep_covers_full_message_inventory():
+    from ouroboros_tpu_torch.analysis.protocol_pass import (
+        discover, message_inventory)
+    samples = _sweep_samples()
+    specs = discover()
+    assert len(specs) >= 10
+    for spec, codec, _file, _line, symbol in specs:
+        assert codec is not None, f"{symbol}: no paired codec"
+        missing = sorted(m for m in message_inventory(spec)
+                         if not samples.get((spec.name, m)))
+        assert not missing, (
+            f"{spec.name}: no roundtrip sample for {missing} — a new "
+            f"message can't ship without a codec sample here")
+        for m in sorted(message_inventory(spec)):
+            for inst in samples[(spec.name, m)]:
+                assert codec.decode(codec.encode(inst)) == inst, \
+                    f"{spec.name}.{m} failed codec roundtrip"
+
+
+def test_sweep_samples_have_no_unknown_inventory_entries():
+    """The sample table can't silently rot: every key must correspond to a
+    live (spec, message) pair."""
+    from ouroboros_tpu_torch.analysis.protocol_pass import (
+        discover, message_inventory)
+    live = {(spec.name, m) for spec, *_ in discover()
+            for m in message_inventory(spec)}
+    stale = sorted(set(_sweep_samples()) - live)
+    assert not stale, f"samples for retired messages: {stale}"
