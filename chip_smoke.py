@@ -220,11 +220,25 @@ the CUDA toolkit.  Phases:
    cases (24 blocks across a mid-run rekey, a counter jump and a stale
    certificate each refused) the same on both; per leg the wall, the
    card calls' count and seconds, and the launches; ~35 s;
-14. the standalone batch-verify path: `perf_probe --old` at 4096 Ed25519
+14. the port's bench, `bench.smoke(device="cuda")`
+   (ouroboros_tpu_torch/bench.py, the reference's `bench.py --smoke`): an
+   8-block chain forged by the port's db_synth and replayed on CppBackend
+   and on a TorchBackend with a floor of 16 lanes to the same state_hash;
+   the mixed-batch verdicts (every primitive, tampered) in fold and
+   vector form equal CpuRefBackend's, and a warm probe that fills no key
+   and runs no KES job; the VRF spread probe; the observation probes
+   (registry snapshot, zero writes and spans when disabled, the scrape
+   endpoint, the mux's disabled path); perfgate over BENCH_GPU_r*.json;
+   the sharded replay on two shards of the card over a valid, a tampered
+   and a truncated chain, equal to CppBackend's; `serve.sim_legs(7,
+   0.5)`; the disk stream with snapshots and a resumed reopen.  Every
+   gate of the smoke must pass, and each of the four window kernels must
+   launch in it; ~30 s;
+15. the standalone batch-verify path: `perf_probe --old` at 4096 Ed25519
    and 2048 VRF lanes (split and full Ed25519 verify, VRF verify, betas;
    each row asserts that every lane verifies), where ed25519_verify and
    the three kernels the probe drives must launch;
-15. the field microbenchmark path: field_chain, field_chain_lp (mul and
+16. the field microbenchmark path: field_chain, field_chain_lp (mul and
    sqr), point_chain and point_chain_x4 each held exactly against its
    plain version on the card for every operation at both of its chain
    lengths, at every lane count the microbenchmark runs (4096, the JAX
@@ -243,7 +257,7 @@ the CUDA toolkit.  Phases:
    host time.  After them one more replay of phase 5's valid chain runs
    under torch.profiler for the card's busy seconds: its some hundred
    thousand traced kernels could reach a later trace, so it comes last;
-16. a `main_path` JSON line, a `microbench_field` JSON line (the
+17. a `main_path` JSON line, a `microbench_field` JSON line (the
    per-operation rows at both lane counts), a `replay` JSON line
    (blocks/s, proofs/s, the producer's host_seq and submit seconds with
    the fill and fold inside it, and the consumer's drain seconds, per
@@ -291,8 +305,9 @@ the CUDA toolkit.  Phases:
    the card), a `conformance` JSON line (leg 1's lanes, tampered lanes
    and errors; each network's heads, era tags, seconds on both backends,
    card calls and their seconds; the restart and rekeying legs' the
-   same; the phase's launches; the card), a `kernels` JSON line
-   (each
+   same; the phase's launches; the card), a `bench_smoke` JSON line
+   (the smoke's result, its seconds and the phase's launches), a
+   `kernels` JSON line (each
    kernel's launches are those of its path: the main path's, the
    probe's for ed25519_verify, the microbenchmark's for the chains, and
    for the four window kernels the replay's first run's as
@@ -303,8 +318,9 @@ the CUDA toolkit.  Phases:
    `sharded_launches`, in the chain database phase as
    `chaindb_launches`, in the node phase as `node_launches`, in the
    diffusion phase as `diffusion_launches`, in the protocols phase as
-   `protocols_launches`, and in the conformance phase's counted calls
-   (not its comparisons) as `conformance_launches`; its
+   `protocols_launches`, in the conformance phase's counted calls
+   (not its comparisons) as `conformance_launches`, and in the bench's
+   smoke as `bench_launches`; its
    launch shape as threads_per_lane and block; kes_hash's 65536-lane
    row under `wide`), the card line, and as
    the last line {"ok": true, "device": {...}}.
@@ -3997,6 +4013,27 @@ def conformance_alone() -> dict:
     return cf
 
 
+def bench_phase(card: str) -> dict:
+    """Phase 14: the port's bench smoke on the card.  Every gate of
+    `bench.smoke` must pass (it raises SystemExit otherwise) and each of
+    the four window kernels must launch in it.  Returns the `bench_smoke`
+    line's dict."""
+    from ouroboros_tpu_torch import bench
+    from ouroboros_tpu_torch.crypto import kernels as K
+    t_phase = time.perf_counter()
+    K.reset_launches()
+    res = bench.smoke(device="cuda")
+    launches = dict(K.LAUNCHES)
+    missing = [k for k in MAIN_PATH if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched in the bench smoke: "
+                             f"{missing}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"bench phase: {phase_s:.3f} s, launches {launches}")
+    return {"seconds": phase_s, "smoke": res, "launches": launches,
+            "card": card}
+
+
 def replay_profiled(ext, chain) -> dict:
     """One more replay of the valid chain under torch.profiler, apart from
     the timed runs: the card's busy seconds and the kernels that took
@@ -4390,7 +4427,10 @@ def main() -> int:
     for name, err in cf["golden"]["max_abs_err"].items():
         max_err[name] = max(max_err[name], err)
 
-    # -- 14. the standalone batch-verify path -------------------------------
+    # -- 14. the port's bench ------------------------------------------------
+    bp = bench_phase(card)
+
+    # -- 15. the standalone batch-verify path -------------------------------
     K.reset_launches()
     t = time.perf_counter()
     probe_rows = perf_probe.main(PROBE_ARGS)
@@ -4402,7 +4442,7 @@ def main() -> int:
         raise AssertionError(f"kernels not launched on the probe's path: "
                              f"{missing}")
 
-    # -- 15. the field microbenchmark path ----------------------------------
+    # -- 16. the field microbenchmark path ----------------------------------
     # every (lanes, op, k) its runs launch, and the first n - 3 lanes of
     # each lane count, exactly against the plain versions; a sample of the
     # JAX shape's lanes against Python integers
@@ -4504,7 +4544,7 @@ def main() -> int:
                              f"{not_dev}")
     rp["profiled"] = replay_profiled(*replayed[:2])
 
-    # -- 16. report -----------------------------------------------------------
+    # -- 17. report -----------------------------------------------------------
     serve_launches = sv["card"]["saturated"]["launches"]
     for entry in report:
         name = entry["name"]
@@ -4515,6 +4555,7 @@ def main() -> int:
         entry["diffusion_launches"] = df["launches"][name]
         entry["protocols_launches"] = pr["launches"][name]
         entry["conformance_launches"] = cf["launches"][name]
+        entry["bench_launches"] = bp["launches"][name]
         entry["sharded_launches"] = (sh["batch_verify"]["launches"][name]
                                      if name == "ed25519_verify"
                                      else sh["launches"][0][name])
@@ -4551,6 +4592,7 @@ def main() -> int:
     print(json.dumps({"diffusion": df}))
     print(json.dumps({"protocols": pr}))
     print(json.dumps({"conformance": cf}))
+    print(json.dumps({"bench_smoke": bp}))
     print(json.dumps({"kernels": report}))
     print(card)
     print(json.dumps({"ok": True, "device": {

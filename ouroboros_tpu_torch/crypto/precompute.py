@@ -13,11 +13,23 @@ their per-key precomputation is pure:
   per-period path has ONE answer for every header it signs.
 
 Entries are the port's "weights": `import_entries` loads them in the
-shape of the JAX cache's `_c` / `_kes` entries.  `device_fills`, a plain
-int, counts the batched fills and stays flat across a warm window.  Undecodable keys are
-cached as negative entries.  `shared_cache(device)` is the process-wide
-instance the standalone batch APIs use (the JAX package's
-GLOBAL_PRECOMPUTE_CACHE); a `TorchBackend` keeps its own.
+shape of the JAX cache's `_c` / `_kes` entries.  Undecodable keys are
+cached as negative entries.
+
+Counters, as the reference keeps them: `hits`, `misses`, `device_fills`
+(batched fills run: flat across a warm window), `filled_keys` and
+`evictions`, counted whether or not observation is enabled (`always`
+instruments), and `lock_wait` (a namespace lock that was not free at
+once; timing-shaped, so `stable=False`).  Each reads and writes as a
+plain int attribute, and `stats()` gives them with the entry counts.
+
+`shared_cache(device)` is the process-wide instance of a device, the one
+the standalone batch APIs use (the JAX package's
+GLOBAL_PRECOMPUTE_CACHE).  Only those register their counters as the
+registry's `precompute.*` metrics; the registry makes an instrument once
+a name, so every device's shared cache counts into the same ones, the
+process's totals, as the reference's one global cache does.  A
+`TorchBackend` keeps its own cache, whose counters are private.
 """
 from __future__ import annotations
 
@@ -28,6 +40,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from ..observe import metrics as _metrics
 from ..observe import spans as _spans
 from . import ed25519 as E
 from . import field as F
@@ -38,6 +51,26 @@ _BAD = object()
 _MISSING = object()
 
 
+class _Stripe:
+    """One namespace's lock; an acquire that has to wait adds one to its
+    cache's `lock_wait` first."""
+
+    __slots__ = ("_lock", "_owner")
+
+    def __init__(self, owner: "PrecomputeCache"):
+        self._lock = threading.Lock()
+        self._owner = owner
+
+    def __enter__(self) -> "_Stripe":
+        if not self._lock.acquire(blocking=False):
+            self._owner.lock_wait += 1
+            self._lock.acquire()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._lock.release()
+
+
 class PrecomputeCache:
     """vk bytes -> (xA, x128, y128) words or `_BAD`, LRU-bounded, filled
     on `device` in one batch per assemble; plus the KES hash-path
@@ -45,18 +78,53 @@ class PrecomputeCache:
     replay assembles on its producer thread while the consumer records
     KES outcomes."""
 
-    def __init__(self, device, max_entries: int = 200_000):
+    COUNTERS = ("hits", "misses", "device_fills", "filled_keys",
+                "evictions")
+
+    def __init__(self, device, max_entries: int = 200_000,
+                 register: bool = False):
         self.device = torch.device(device)
         self._c: OrderedDict = OrderedDict()
         self._kes: OrderedDict = OrderedDict()
         self.max_entries = max_entries
-        self.device_fills = 0          # batched a128 fills run
-        self._lock_c = threading.Lock()
-        self._lock_kes = threading.Lock()
+        mk = ((lambda n, **kw: _metrics.counter(n, always=True, **kw))
+              if register
+              else (lambda n, **kw: _metrics.Counter(n, always=True, **kw)))
+        self._counters = {name: mk(f"precompute.{name}")
+                          for name in self.COUNTERS}
+        self._counters["lock_wait"] = mk("precompute.lock_wait",
+                                         stable=False)
+        self._lock_c = _Stripe(self)
+        self._lock_kes = _Stripe(self)
         # fills run on their own stream: their copy back to the host must
         # not wait for window kernels queued on the backend's stream
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
+
+    # -- counters as int attributes ----------------------------------------
+    def _alias(name):  # noqa: N805 (a property factory, not a method)
+        def _get(self):
+            return self._counters[name].value
+
+        def _set(self, v):
+            self._counters[name].value = v
+        return property(_get, _set)
+
+    hits = _alias("hits")
+    misses = _alias("misses")
+    device_fills = _alias("device_fills")
+    filled_keys = _alias("filled_keys")
+    evictions = _alias("evictions")
+    lock_wait = _alias("lock_wait")
+    del _alias
+
+    def stats(self) -> dict:
+        return {"entries": len(self._c), "kes_entries": len(self._kes),
+                "hits": self.hits, "misses": self.misses,
+                "device_fills": self.device_fills,
+                "filled_keys": self.filled_keys,
+                "evictions": self.evictions,
+                "lock_wait": self.lock_wait}
 
     # -- point entries (Ed25519 A / VRF Y) ----------------------------------
     def assemble(self, vks):
@@ -73,10 +141,12 @@ class PrecomputeCache:
                 ent = self._c.get(vk, _MISSING)
                 if ent is not _MISSING:
                     self._c.move_to_end(vk)
+                    self.hits += 1
                     local[vk] = ent
                 else:
                     missing.append(vk)
                     local[vk] = _BAD   # overwritten by the fill below
+        self.misses += len(missing)
         if missing:
             local.update(self._fill(missing))
         n = len(vks)
@@ -107,6 +177,7 @@ class PrecomputeCache:
                                     (m - len(missing)), 32)
         yw, sign, y_ok = E._decode_compressed(arr)
         self.device_fills += 1
+        self.filled_keys += len(missing)
         with (torch.cuda.stream(self._stream) if self._stream is not None
               else contextlib.nullcontext()), \
                 _spans.span("precompute.fill", cat="device"):
@@ -144,8 +215,11 @@ class PrecomputeCache:
         """(leaf_vk, path_ok) for a hash-path identity, or None."""
         with self._lock_kes:
             ent = self._kes.get(key)
-            if ent is not None:
-                self._kes.move_to_end(key)
+            if ent is None:
+                self.misses += 1
+                return None
+            self._kes.move_to_end(key)
+            self.hits += 1
             return ent
 
     def kes_put(self, key, leaf_vk, path_ok: bool) -> None:
@@ -159,6 +233,7 @@ class PrecomputeCache:
             od.move_to_end(key)
             while len(od) > self.max_entries:
                 od.popitem(last=False)
+                self.evictions += 1
 
 
 _SHARED: dict = {}
@@ -170,5 +245,5 @@ def shared_cache(device) -> PrecomputeCache:
     dev = torch.device(device)
     with _SHARED_LOCK:
         if dev not in _SHARED:
-            _SHARED[dev] = PrecomputeCache(dev)
+            _SHARED[dev] = PrecomputeCache(dev, register=True)
         return _SHARED[dev]

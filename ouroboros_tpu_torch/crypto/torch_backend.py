@@ -61,8 +61,8 @@ FOLD_SENT = 0x7FFFFFFF
 MIN_BUCKET = 128
 
 
-def _bucket(n: int) -> int:
-    m = MIN_BUCKET
+def _bucket(n: int, floor: int) -> int:
+    m = floor
     while m < n:
         m *= 2
     return m
@@ -124,8 +124,12 @@ class TorchBackend(CryptoBackend):
     # to count a flush's padded lanes
     min_bucket = MIN_BUCKET
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, min_bucket: Optional[int] = None):
+        """`min_bucket` lowers (or raises) this backend's padding floor,
+        as the JAX backend's `min_bucket` does; None keeps MIN_BUCKET."""
         self.device = device_mod.resolve(device)
+        if min_bucket is not None:
+            self.min_bucket = min_bucket
         self.cache = PrecomputeCache(self.device)
         self._cuda = self.device.type == "cuda"
         self._stream = torch.cuda.Stream(self.device) if self._cuda else None
@@ -142,7 +146,7 @@ class TorchBackend(CryptoBackend):
         return 1
 
     def _pad(self, n: int) -> int:
-        return _bucket(n)
+        return _bucket(n, self.min_bucket)
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         """Host array -> device tensor (pinned staging on CUDA, so the copy

@@ -612,3 +612,23 @@ def test_cardano_network_crosses_the_fork_on_the_card(dev):
         if which == "card":
             assert all(K.LAUNCHES[k] > 0 for k in chip_smoke.MAIN_PATH)
     assert digests["card"] == digests["cpp"]
+
+
+def test_bench_smoke_on_the_card(dev):
+    """`bench.smoke(device="cuda")`: every gate of the smoke on the card
+    (the sharded probe on two shards of the card), the four window
+    kernels launched in it and `ed25519_verify` not."""
+    from ouroboros_tpu_torch import bench
+    res = bench.smoke(device="cuda")
+    assert res["value"] == 1.0 and res["device"] == "cuda"
+    assert res["state_hash_parity"] and res["verdict_parity"]
+    assert res["fold_verdict_parity"] and res["perfgate_ok"]
+    assert res["warm_device_fills"] == 0 and res["warm_kes_jobs"] == 0
+    assert res["replay_fill_dispatches"] <= 3
+    assert res["sharded_replay_smoke"]["ok"] is True
+    assert res["sharded_replay_smoke"]["skipped"] is None
+    assert res["stream_probe"]["ok"] and res["serve_probe"]["ok"]
+    launched = res["kernel_launches"]
+    assert all(launched[k] > 0 for k in ("ed25519_split", "vrf_verify",
+                                         "gamma8", "kes_hash")), launched
+    assert launched["ed25519_verify"] == 0

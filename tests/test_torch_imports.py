@@ -89,6 +89,8 @@ _NAMED = [
     "ouroboros_tpu_torch.analysis.sim_pass",
     "ouroboros_tpu_torch.analysis.conc_pass",
     "ouroboros_tpu_torch.analysis.obs_pass",
+    # the bench
+    "ouroboros_tpu_torch.bench",
 ]
 
 _CHECK = r"""
@@ -103,7 +105,8 @@ assert not missing, missing
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "ouroboros_tpu", "tools"))
+             if m.split(".")[0] in ("jax", "ouroboros_tpu", "tools",
+                                    "bench"))
 print(len(names), bad)
 assert not bad, bad
 """
@@ -117,12 +120,13 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert n_modules >= 143         # every module of every slice imported
 
 
-_BANNED = ("jax", "jaxlib", "ouroboros_tpu", "tools")
+_BANNED = ("jax", "jaxlib", "ouroboros_tpu", "tools", "bench")
 
 
 def _banned(name) -> bool:
-    """A module name that is JAX's, the JAX package's or its tools' (a
-    relative import, whose name is None or relative, is the port's own)."""
+    """A module name that is JAX's, the JAX package's, its tools' or its
+    bench's (the root `bench.py`); a relative import, whose name is None
+    or relative, is the port's own."""
     return isinstance(name, str) and name.split(".")[0] in _BANNED
 
 
@@ -184,6 +188,14 @@ def test_no_import_at_any_depth_names_jax_or_the_jax_package():
     ("from tools.analysis import Baseline, run_passes", True),
     ("from tools.analysis.protocol_pass import discover", True),
     ("from ouroboros_tpu_torch.analysis import Baseline", False),
+    # the JAX package's bench, which the port's bench copies
+    ("import bench", True),
+    ("from bench import smoke", True),
+    ("import bench as ref_bench", True),
+    ("importlib.import_module('bench')", True),
+    ("from ouroboros_tpu_torch import bench", False),
+    ("from ouroboros_tpu_torch.bench import smoke", False),
+    ("from . import bench", False),
     ("from ouroboros_tpu_torch.obsreport import render_live", False),
     ("from .obsreport import load_bench", False),
     ("from ..consensus.ledger import OutsideForecastRange", False),
@@ -249,6 +261,26 @@ def test_default_backend_on_the_card_is_a_torch_backend():
     got = backend.default_backend()
     assert isinstance(got, TorchBackend) and got.device.type == "cuda"
     assert backend.default_backend() is got
+
+
+def test_bench_raises_without_a_card_before_forging(monkeypatch):
+    _require_no_card()
+    from ouroboros_tpu_torch import bench
+
+    def forge(*a, **kw):
+        raise AssertionError("forged before the device was checked")
+    monkeypatch.setattr(bench, "synth_chain", forge)
+    with pytest.raises(RuntimeError):
+        bench.main()
+    with pytest.raises(RuntimeError):
+        bench.main(mesh_n=2)
+    with pytest.raises(RuntimeError):
+        bench.smoke()
+    out = subprocess.run([sys.executable, "-m", "ouroboros_tpu_torch.bench"],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=_ROOT)
+    assert out.returncode != 0 and "no CUDA device" in out.stderr
+    assert "synth:" not in out.stderr and out.stdout == ""
 
 
 def test_serve_raises_without_a_card():
