@@ -85,16 +85,15 @@ DEPTH = 2
 # pair equal after the pipelined parity probe
 _STARTED = _metrics.counter("pipeline.producers_started", always=True)
 _FINISHED = _metrics.counter("pipeline.producers_finished", always=True)
-# observational: windows through the pipeline / producer permit stalls
+# observational: windows through the pipeline (the producer's permit
+# stalls are timed by the `producer.stall` span)
 _WINDOWS = _metrics.counter("pipeline.windows")
-_STALLS = _metrics.counter("pipeline.producer_stalls")
 # queue-latency instrumentation: submit→drain covers the full
 # async residence of a window — dispatch queue + device + transfer —
 # the quantity the adaptive batching service will trade off against
-# coalescing gain.  Handles pre-bound here (OBS002): observe() is two
-# hot-loop calls per window.
+# coalescing gain.  Handle pre-bound here (OBS002): observe() is a
+# hot-loop call per window.
 _SUBMIT_DRAIN = _metrics.latency_histogram("pipeline.submit_drain_secs")
-_WINDOW_BLOCKS = _metrics.histogram("pipeline.window_blocks")
 
 # replay progress gauges (rendered live by tools/obsreport.py --live via
 # the scrape endpoint).  blocks_done / windows_in_flight / total are
@@ -288,7 +287,6 @@ def _produce(shared: _Shared, ext_rules, block_iter, ext_state, backend,
             with shared.cond:
                 if not (shared.stop
                         or shared.submitted - shared.drained < DEPTH):
-                    _STALLS.inc()
                     with _spans.span("producer.stall", cat="stall"):
                         shared.cond.wait_for(
                             lambda: shared.stop or
@@ -336,7 +334,6 @@ def _produce(shared: _Shared, ext_rules, block_iter, ext_state, backend,
             sub = (submit(reqs, next_proofs, fold=True) if fold
                    else submit(reqs, next_proofs))
             _WINDOWS.inc()
-            _WINDOW_BLOCKS.observe(n_seq_w)
             if progress is not None:
                 progress.window_submitted()
             # the window's post-prefix state + tip point ride the entry:

@@ -131,7 +131,12 @@ class PrecomputeCache:
         """((8, N) uint32 xA words, x128 words, y128 words, known (N,) bool)
         for a batch of keys, filling every missing key in one batch.
         `known` is False for keys that do not decompress; callers must mask
-        those lanes, since the kernels trust the cached x."""
+        those lanes, since the kernels trust the cached x.  Recorded as
+        the `precompute.assemble` span, the fill's spans inside it."""
+        with _spans.span("precompute.assemble", cat="dispatch"):
+            return self._assemble(vks)
+
+    def _assemble(self, vks):
         local: dict = {}
         missing = []
         with self._lock_c:
@@ -169,7 +174,10 @@ class PrecomputeCache:
         """One batched `a128_core` over every missing key, padded to a
         power-of-two bucket (floor 128).  Returns the fresh {vk: entry}
         map; assemble reads it directly, so LRU eviction during the
-        inserts cannot lose this batch's entries."""
+        inserts cannot lose this batch's entries.  `precompute.fill`
+        covers issuing the fill's torch ops and reading the result back;
+        `precompute.fill_wait`, inside it, only the read-back, which
+        waits for the card to finish them."""
         m = 128
         while m < len(missing):
             m *= 2
@@ -185,8 +193,11 @@ class PrecomputeCache:
             xa, x, y, ok = E.a128_core(
                 yA, torch.from_numpy(sign).to(self.device))
             rows = torch.cat([F.bytes_from_canon(c) for c in (xa, x, y)])
-            rows = rows.T.contiguous().to(torch.uint8).cpu().numpy()
-            ok = ok.cpu().numpy() & len_ok & y_ok
+            rows = rows.T.contiguous().to(torch.uint8)
+            with _spans.span("precompute.fill_wait", cat="device"):
+                rows = rows.cpu().numpy()
+                ok = ok.cpu().numpy()
+            ok = ok & len_ok & y_ok
         words = rows.view(np.uint32)                     # (m, 24) words
         fresh: dict = {}
         for j, vk in enumerate(missing):

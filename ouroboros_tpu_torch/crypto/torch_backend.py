@@ -33,8 +33,15 @@ last, staged and launched once); the sharded backend
 shards, and inherits the rest.
 
 Spans (observe/spans.py, recorded only when enabled): `window.submit`
-around a submit's host work, with `precompute.fill` and `window.fold`
-inside it, and `window.drain` around finish_window's wait and parse.
+around a submit's host work, and `window.drain` around finish_window's
+wait and parse.  Inside `window.submit`, in a window's order:
+`submit.split` (the request split and the cold KES path walks),
+`submit.pack` (each host packer: Ed25519, VRF, betas, KES jobs),
+`precompute.assemble` (the key cache's lookups and column copies, with
+`precompute.fill` and its `precompute.fill_wait` inside it on missing
+keys), `submit.launch` (each kernel's staging and launch),
+`submit.attach` (the fold's host-known failures and lane owners) and
+then `window.fold` (the verdict fold's staging and torch ops).
 """
 from __future__ import annotations
 
@@ -203,20 +210,22 @@ class TorchBackend(CryptoBackend):
         entries for an Ed25519 batch padded to m; keys the cache could not
         decompress are masked out of parse_ok."""
         pad = m - len(reqs)
-        vks = [r.vk for r in reqs] + [b"\x00" * 32] * pad
-        arrays, parse_ok = E.prepare_words_batch(
-            vks, [r.msg for r in reqs] + [b""] * pad,
-            [r.sig for r in reqs] + [b"\x00" * 64] * pad)
+        with _spans.span("submit.pack", cat="dispatch"):
+            vks = [r.vk for r in reqs] + [b"\x00" * 32] * pad
+            arrays, parse_ok = E.prepare_words_batch(
+                vks, [r.msg for r in reqs] + [b""] * pad,
+                [r.sig for r in reqs] + [b"\x00" * 64] * pad)
         Aw, _signA, Rw, signR, sw, kw = arrays
         xa, xw, yw, known = self.cache.assemble(vks)
         return (Aw, xa, xw, yw, Rw, signR, sw, kw), parse_ok & known
 
     def _prep_vrf(self, reqs, m: int):
         pad = m - len(reqs)
-        vks = [r.vk for r in reqs] + [b"\x00" * 32] * pad
-        args, parse_ok, gamma_ok, s_ok, pf_arr = V._prepare_words(
-            vks, [r.alpha for r in reqs] + [b""] * pad,
-            [r.proof for r in reqs] + [b"\x00" * 80] * pad)
+        with _spans.span("submit.pack", cat="dispatch"):
+            vks = [r.vk for r in reqs] + [b"\x00" * 32] * pad
+            args, parse_ok, gamma_ok, s_ok, pf_arr = V._prepare_words(
+                vks, [r.alpha for r in reqs] + [b""] * pad,
+                [r.proof for r in reqs] + [b"\x00" * 80] * pad)
         Yw, _signY, Gw, signG, rw, cw, sw = args
         xa, _x128, _y128, known = self.cache.assemble(vks)
         return ((Yw, xa, Gw, signG, rw, cw, sw),
@@ -228,10 +237,11 @@ class TorchBackend(CryptoBackend):
         return (Gw, signG), decode_ok
 
     def _prep_kes_hash(self, kes_msgs, kes_expects, m: int):
-        msgs = np.frombuffer(b"".join(kes_msgs), dtype=np.uint8)
-        exps = np.frombuffer(b"".join(kes_expects), dtype=np.uint8)
-        mw = _pad_words(B2.msg_words(msgs.reshape(-1, 64)), m)
-        ew = _pad_words(B2.digest_words(exps.reshape(-1, 32)), m)
+        with _spans.span("submit.pack", cat="dispatch"):
+            msgs = np.frombuffer(b"".join(kes_msgs), dtype=np.uint8)
+            exps = np.frombuffer(b"".join(kes_expects), dtype=np.uint8)
+            mw = _pad_words(B2.msg_words(msgs.reshape(-1, 64)), m)
+            ew = _pad_words(B2.digest_words(exps.reshape(-1, 32)), m)
         return mw, ew
 
     # -- simple batches ----------------------------------------------------------
@@ -347,9 +357,10 @@ class TorchBackend(CryptoBackend):
             return self._submit_window(reqs, next_beta_proofs, fold)
 
     def _submit_window(self, reqs, next_beta_proofs, fold):
-        (ed_reqs, ed_owner, vrf_reqs, vrf_owner,
-         kes_msgs, kes_expects, kes_checks, n) = \
-            self._split_mixed_device(reqs)
+        with _spans.span("submit.split", cat="dispatch"):
+            (ed_reqs, ed_owner, vrf_reqs, vrf_owner,
+             kes_msgs, kes_expects, kes_checks, n) = \
+                self._split_mixed_device(reqs)
         beta_proofs = list(dict.fromkeys(next_beta_proofs))
         ne = nv = nb = nk = 0
         parts = []
@@ -361,22 +372,31 @@ class TorchBackend(CryptoBackend):
             ne = self._pad(len(ed_reqs))
             args, parse_ok = self._prep_ed(ed_reqs, ne)
             state["ed"] = parse_ok
-            parts.append(self._launch_lanes("ed25519_split", args)
-                         .to(torch.uint8))
+            with _spans.span("submit.launch", cat="dispatch"):
+                parts.append(self._launch_lanes("ed25519_split", args)
+                             .to(torch.uint8))
         if vrf_reqs:
             nv = self._pad(len(vrf_reqs))
             args, masks = self._prep_vrf(vrf_reqs, nv)
             state["vrf"] = masks
-            parts.append(self._launch_lanes("vrf_verify", args).reshape(-1))
+            with _spans.span("submit.launch", cat="dispatch"):
+                parts.append(self._launch_lanes("vrf_verify", args)
+                             .reshape(-1))
         if beta_proofs:
             nb = self._pad(len(beta_proofs))
-            args, decode_ok = self._prep_betas(beta_proofs, nb)
+            # spanned here, not in _prep_betas: a replay's beta prefetch
+            # (vrf_betas_batch) packs outside any window's seam
+            with _spans.span("submit.pack", cat="dispatch"):
+                args, decode_ok = self._prep_betas(beta_proofs, nb)
             state["beta"] = decode_ok
-            parts.append(self._launch_lanes("gamma8", args).reshape(-1))
+            with _spans.span("submit.launch", cat="dispatch"):
+                parts.append(self._launch_lanes("gamma8", args).reshape(-1))
         if kes_msgs:
             nk = self._pad(len(kes_msgs))
-            parts.append(self._launch_lanes("kes_hash", self._prep_kes_hash(
-                kes_msgs, kes_expects, nk)).to(torch.uint8))
+            args = self._prep_kes_hash(kes_msgs, kes_expects, nk)
+            with _spans.span("submit.launch", cat="dispatch"):
+                parts.append(self._launch_lanes("kes_hash", args)
+                             .to(torch.uint8))
         state.update(ne=ne, nv=nv, nb=nb, nk=nk)
         self._note_padding(
             len(ed_reqs) + len(vrf_reqs) + len(beta_proofs) + len(kes_msgs),
@@ -402,6 +422,20 @@ class TorchBackend(CryptoBackend):
         """Merge host-known failures (undecodable keys and signatures,
         structurally invalid or known-bad KES paths) into
         `host_first_bad` and fold the packed buffer on device."""
+        with _spans.span("submit.attach", cat="dispatch"):
+            ed_own, vrf_own, gamma_b, c_b = self._fold_owners(state)
+        if packed is None:
+            return None
+        with _spans.span("window.fold", cat="dispatch"):
+            return fold_window(packed, state["ne"], state["nv"], state["nb"],
+                               state["nk"], self._dev(ed_own),
+                               self._dev(vrf_own), self._dev(gamma_b),
+                               self._dev(c_b))
+
+    def _fold_owners(self, state):
+        """The fold's host side: sets `host_first_bad` in `state` and
+        returns the lane-to-request maps and the VRF proofs' gamma and c
+        bytes that fold_window takes."""
         n = state["n"]
         ne, nv = state["ne"], state["nv"]
         covered = np.zeros(max(n, 1), dtype=bool)
@@ -434,12 +468,7 @@ class TorchBackend(CryptoBackend):
             host_bad = int(uncovered[0])
         state["fold"] = True
         state["host_first_bad"] = host_bad
-        if packed is None:
-            return None
-        with _spans.span("window.fold", cat="dispatch"):
-            return fold_window(packed, ne, nv, state["nb"], state["nk"],
-                               self._dev(ed_own), self._dev(vrf_own),
-                               self._dev(gamma_b), self._dev(c_b))
+        return ed_own, vrf_own, gamma_b, c_b
 
     def finish_window(self, state):
         """Wait for a submit_window's result (one copy); returns (ok list

@@ -9,11 +9,12 @@ attributes time to:
                checks, proof extraction)
     dispatch   host-side prep + async kernel dispatch (submit_window)
     device     blocking on device results (the finish_window drain, a
-               precompute fill)
-    compile    XLA trace+compile (first call of a fused composite, the
-               sharded-mesh build)
-    sync       explicit block_until_ready fences draining the async
-               dispatch queue before a timed region
+               precompute fill and its wait for the card)
+    compile    what stands in for a compile in the port: the CUDA
+               kernel library's nvcc build or load and a path's first
+               launch (parallel/mesh.py:log_compile_time)
+    sync       explicit `torch.cuda.synchronize()` fences draining the
+               card's queued work before a timed region
     disk       storage-layer reads + CBOR decode on the streaming
                replay's prefetch thread (storage/stream.py) — the
                seconds the read-ahead hides under device verify
@@ -33,6 +34,15 @@ themselves.
 
 Disabled recording is near-free: `span()` returns one shared null
 context manager (no allocation, no clock read).
+
+CPU time: outside a runtime, a span also reads `time.thread_time()` at
+both edges, and `Span.cpu` holds the calling thread's CPU seconds inside
+it.  Its wall time less its CPU time is the time the thread was off the
+CPU: waiting for the interpreter lock, descheduled, or blocked in a call
+(a wait for the card among them).  Under a runtime `cpu` stays None,
+since the runtime's clock is not the thread's.  `SpanRecorder.totals()`
+gives (count, wall seconds, CPU seconds) by name over every span closed
+since the recorder was last enabled.
 
 Thread discipline: the pipelined replay runs its host-sequential pass on
 a background producer thread (consensus/pipeline.py), so the recorder
@@ -82,9 +92,11 @@ def device_fence() -> None:
 class Span:
     """One completed (or in-flight) interval.  `t0`/`t1` are clock
     readings from `monotonic_now`; `children` are spans closed while
-    this one was the innermost open span."""
+    this one was the innermost open span; `cpu` is the recording
+    thread's CPU seconds between the edges (None under a runtime)."""
 
-    __slots__ = ("name", "cat", "t0", "t1", "children", "meta")
+    __slots__ = ("name", "cat", "t0", "t1", "children", "meta", "cpu",
+                 "_c0")
 
     def __init__(self, name: str, cat: str, t0: float):
         self.name = name
@@ -93,6 +105,8 @@ class Span:
         self.t1: Optional[float] = None
         self.children: List["Span"] = []
         self.meta: Optional[dict] = None
+        self.cpu: Optional[float] = None
+        self._c0: Optional[float] = None    # thread_time() at the open
 
     @property
     def duration(self) -> float:
@@ -159,8 +173,10 @@ class SpanRecorder:
         self.max_roots = max_roots
         self.roots: List[Span] = []
         self._tls = threading.local()      # per-thread open-span stack
-        self._lock = threading.Lock()      # guards roots/dropped
+        self._lock = threading.Lock()      # guards roots/dropped/_totals
         self.dropped = 0
+        # name -> (count, wall s, cpu s) since the last enable()
+        self._totals: dict = {}
         self.flight = None                 # armed FlightRecorder
         self._drop_counter = _metrics.counter("observe.spans_dropped",
                                               always=True)
@@ -196,6 +212,8 @@ class SpanRecorder:
         return _LiveSpan(self, name, cat, fence)
 
     def enable(self) -> None:
+        with self._lock:
+            self._totals = {}
         self.enabled = True
 
     def disable(self) -> None:
@@ -213,10 +231,23 @@ class SpanRecorder:
             self.roots = []
             self._tls = threading.local()
             self.dropped = 0
+            self._totals = {}
+
+    def totals(self) -> dict:
+        """{name: (count, wall seconds, CPU seconds)} over the spans
+        closed since the recorder was last enabled (or cleared); drain()
+        and disable() keep it.  CPU seconds are None where a span of the
+        name was recorded under a runtime."""
+        with self._lock:
+            return dict(self._totals)
 
     # -- recording ---------------------------------------------------------
     def _open(self, name: str, cat: str) -> Span:
         sp = Span(name, cat, monotonic_now())
+        if _runtime.current_or_none() is None:
+            # read after the wall clock at the open and before it at the
+            # close, so the CPU interval lies inside the wall one
+            sp._c0 = time.thread_time()
         self._stack.append(sp)
         return sp
 
@@ -227,13 +258,17 @@ class SpanRecorder:
             # recording it again would attach it under a second
             # parent or root and double-count it in phase_totals
             return
+        c1 = time.thread_time() if sp._c0 is not None else None
         sp.t1 = monotonic_now()
+        if c1 is not None:
+            sp.cpu = c1 - sp._c0
         fl = self.flight
         if fl is not None:
             fl.span(sp)
         # tolerate out-of-order closes (a generator-held span closed
         # late): pop up to and including sp, re-parenting survivors
         stack = self._stack
+        closed = [sp]
         if sp in stack:
             while stack:
                 top = stack.pop()
@@ -241,6 +276,9 @@ class SpanRecorder:
                     break
                 if top.t1 is None:
                     top.t1 = sp.t1
+                    if c1 is not None and top._c0 is not None:
+                        top.cpu = c1 - top._c0
+                    closed.append(top)
                 sp.children.append(top)
         parent = stack[-1] if stack else None
         # phase-latency feed: one sample per contiguous same-category
@@ -252,8 +290,14 @@ class SpanRecorder:
             self._hist_for(sp.cat).observe(sp.t1 - sp.t0)
         if parent is not None:
             parent.children.append(sp)
-        else:
-            with self._lock:
+        with self._lock:
+            totals = self._totals
+            for s in closed:
+                n, wall, cpu = totals.get(s.name, (0, 0.0, 0.0))
+                totals[s.name] = (n + 1, wall + s.duration,
+                                  None if cpu is None or s.cpu is None
+                                  else cpu + s.cpu)
+            if parent is None:
                 if len(self.roots) < self.max_roots:
                     self.roots.append(sp)
                 else:

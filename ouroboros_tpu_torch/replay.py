@@ -17,10 +17,16 @@ prints blocks/s and proofs/s (4 + the witnesses of each block, as
 `bench.py` counts them), whether the final ledger `state_hash` equals
 the forger's `tick_then_reapply` state, and where its time went, from
 the spans (observe/spans.py): the producer's `window.host_seq` and
-`window.submit` (with `precompute.fill` and `window.fold` inside it) and
-the consumer's `pipeline.drain`.  The forging seconds are printed on
-their own line, outside every timed region.  The run is on the CUDA card
-unless `--device cpu` is given; without a card it raises before forging.
+`window.submit`, the consumer's `pipeline.drain`, and inside each submit
+the seam's parts (`submit.split`, `submit.pack`, `precompute.assemble`,
+`submit.launch`, `submit.attach`), the per-key fill (`precompute.fill`
+and its wait for the card, `precompute.fill_wait`) and the verdict fold
+(`window.fold`).  It also prints the share of `window.host_seq` that the
+producer thread spent off the CPU: its wall time less its thread CPU
+time, waiting for the interpreter lock or descheduled.  The forging
+seconds are printed on their own line, outside every timed region.
+The run is on the CUDA card unless `--device cpu` is given; without a
+card it raises before forging.
 """
 from __future__ import annotations
 
@@ -36,8 +42,11 @@ from .crypto.torch_backend import TorchBackend
 from .observe import spans as _spans
 
 # the spans a run reports, in the order of a window's life
-SPANS = ("window.host_seq", "window.submit", "precompute.fill",
-         "window.fold", "pipeline.drain")
+SPANS = ("window.host_seq", "window.submit", "submit.split", "submit.pack",
+         "precompute.assemble", "precompute.fill", "precompute.fill_wait",
+         "submit.launch", "submit.attach", "window.fold", "pipeline.drain")
+# those that open inside a `window.submit`: one sum a submit
+IN_SUBMIT = SPANS[2:-1]
 
 
 def n_proofs(blocks) -> int:
@@ -54,24 +63,36 @@ DISK_SPANS = ("stream.read", "stream.decode")
 def _span_seconds(roots, names=SPANS) -> dict:
     """Per name in `names`, one duration a root span in order: the root
     spans of the producer (host_seq, submit), of the consumer (drain)
-    and of the prefetch thread (read, decode), and the fill and fold
-    seconds inside each submit."""
+    and of the prefetch thread (read, decode), and the seconds of each
+    span of IN_SUBMIT inside each submit (never one outside a submit,
+    such as the beta prefetch's packer)."""
     out = {name: [] for name in names}
     for root in sorted(roots, key=lambda r: r.t0):
-        if root.name not in out:
+        if root.name not in out or root.name in IN_SUBMIT:
             continue
         out[root.name].append(root.duration)
         if root.name == "window.submit":
-            for name in ("precompute.fill", "window.fold"):
+            for name in IN_SUBMIT:
                 if name in out:
                     out[name].append(sum(s.duration for s in root.walk()
                                          if s.name == name))
     return out
 
 
-def recording(fn, names=SPANS) -> tuple:
-    """fn() with span recording on: (its result, its seconds, the span
-    seconds of `names`, as `_span_seconds` gives them)."""
+def offcpu_pct(roots, name: str = "window.host_seq"):
+    """100 x (wall - CPU) / wall over the root spans called `name`: the
+    share of their time that their thread spent off the CPU.  None where
+    there is none, or their CPU time was not read (under a runtime)."""
+    sps = [r for r in roots if r.name == name and r.t1 is not None]
+    wall = sum(r.duration for r in sps)
+    if not wall or any(r.cpu is None for r in sps):
+        return None
+    return 100.0 * (wall - sum(r.cpu for r in sps)) / wall
+
+
+def _recorded(fn) -> tuple:
+    """fn() with span recording on: (its result, its seconds, the root
+    spans it closed)."""
     rec = _spans.RECORDER
     was_on = rec.enabled
     rec.drain()
@@ -83,22 +104,31 @@ def recording(fn, names=SPANS) -> tuple:
     finally:
         if not was_on:
             rec.disable()
-    return out, seconds, _span_seconds(rec.drain(), names)
+    return out, seconds, rec.drain()
+
+
+def recording(fn, names=SPANS) -> tuple:
+    """fn() with span recording on: (its result, its seconds, the span
+    seconds of `names`, as `_span_seconds` gives them)."""
+    out, seconds, roots = _recorded(fn)
+    return out, seconds, _span_seconds(roots, names)
 
 
 def replay_once(ext, blocks, backend, window: int) -> dict:
     """One replay of `blocks` from genesis through `backend`, with a
     cleared beta cache and span recording on.  Returns the ReplayResult
-    (`result`), the seconds, blocks/s, proofs/s and the per-window span
-    seconds (`spans`: name -> list)."""
+    (`result`), the seconds, blocks/s, proofs/s, the per-window span
+    seconds (`spans`: name -> list) and the sequential pass's off-CPU
+    share (`host_seq_offcpu_pct`, offcpu_pct's)."""
     GLOBAL_BETA_CACHE.clear()
-    res, seconds, spans = recording(
+    res, seconds, roots = _recorded(
         lambda: replay_blocks_pipelined(ext, blocks, ext.initial_state(),
                                         backend=backend, window=window))
     return {"result": res, "seconds": seconds,
             "blocks_per_s": res.n_valid / seconds,
             "proofs_per_s": n_proofs(blocks[:res.n_valid]) / seconds,
-            "spans": spans}
+            "spans": _span_seconds(roots),
+            "host_seq_offcpu_pct": offcpu_pct(roots)}
 
 
 def run(blocks: int = 2304, window: int = 1024, device=None, runs: int = 1,
@@ -147,6 +177,9 @@ def main(argv=None) -> int:
               + ("" if res.error is None else f", error {res.error!r}"))
         print("  " + ", ".join(f"{name} {sum(v):.4f} s" for name, v
                                in sp.items()))
+        off = r["host_seq_offcpu_pct"]
+        print("  window.host_seq off the CPU: "
+              + ("not read" if off is None else f"{off:.1f} %"))
     print(json.dumps({
         "device": out["device"], "blocks": a.blocks, "window": a.window,
         "forge_s": out["forge_s"],
@@ -154,7 +187,9 @@ def main(argv=None) -> int:
         "proofs_per_s": [r["proofs_per_s"] for r in out["runs"]],
         "state_hash_match": [r["state_hash_match"] for r in out["runs"]],
         "spans_s": [{k: sum(v) for k, v in r["spans"].items()}
-                    for r in out["runs"]]}))
+                    for r in out["runs"]],
+        "host_seq_offcpu_pct": [r["host_seq_offcpu_pct"]
+                                for r in out["runs"]]}))
     return 0 if ok else 1
 
 
