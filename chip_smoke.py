@@ -7,13 +7,15 @@ Run from the repository root on a machine with one NVIDIA Hopper card and
 the CUDA toolkit.  Phases:
 
 1. the card (name and power limit from nvidia-smi) and the build of the
-   nine CUDA kernels from ouroboros_tpu_torch/csrc/;
+   ten CUDA kernels from ouroboros_tpu_torch/csrc/;
 2. each kernel against its plain PyTorch version on the card, at the
    main path's lane counts (Ed25519 4096, VRF 2048, betas 2048, KES jobs
    8192; the full Ed25519 verify on the same 4096 requests with A-side
    tampers added; the four chain kernels on the field microbenchmark's
-   4096 lanes at the longer chain of mul and of dbl) with tampered
-   lanes, compared exactly; ed25519_split, vrf_verify, gamma8,
+   4096 lanes at the longer chain of mul and of dbl; the verdict fold,
+   window_fold, over the four window kernels' packed buffer, its first
+   failing request also against the host's) with tampered lanes,
+   compared exactly; ed25519_split, vrf_verify, gamma8,
    ed25519_verify and kes_hash (several threads a lane) again on the
    first n - 3 of those lanes; a sample of lanes against the CPU
    references (ed25519_ref, vrf_ref), and every KES job against hashlib
@@ -24,13 +26,14 @@ the CUDA toolkit.  Phases:
 3. kernel times, CUDA events around the wrapper call (`ms`, median of 7
    after a warm-up, the host time of the launch included), the host time
    of one wrapper call alone (`host_us`, device.host_us: median of 200,
-   the card idle at each call), the plain versions' times, the verdict
-   fold's and the per-key fill's times, and each kernel's bound: per-lane
-   32-bit integer multiply-adds counted from the plain version's field
-   products (for the chains, k times microbench_field.OPS_PER_STEP), over
-   the card's integer rate (kes_hash: blake2b.INT_OPS, the fewest simple
-   32-bit instructions a check needs, over the SM's issue rate), or its
-   bytes over the memory rate, whichever is larger;
+   the card idle at each call), the plain versions' times (the fold's is
+   the torch-op fold), the per-key fill's time, and each kernel's bound:
+   per-lane 32-bit integer multiply-adds counted from the plain version's
+   field products (for the chains, k times microbench_field.OPS_PER_STEP),
+   over the card's integer rate (kes_hash: blake2b.INT_OPS, the fewest
+   simple 32-bit instructions a check needs, and window_fold: fold.INT_OPS
+   a VRF lane, over the SM's issue rate), or its bytes over the memory
+   rate, whichever is larger;
 4. the main path: `validate.drive` over six 1024-block windows of 1024
    pools, two in flight with fold=True: windows 0-2 valid, window 3 with
    a flipped witness signature, window 4 with a VRF proof held against
@@ -38,9 +41,10 @@ the CUDA toolkit.  Phases:
    window 5 with a bad KES Merkle node (a cold path in a KES-warm
    window).  Each window's first bad request must be the one the CPU
    references find, which also check a sample of every window and the
-   betas; each of the four window kernels must have launched there.  The
-   path runs three times back to back, each on a fresh backend, to show
-   the spread of its rate beside the process's CPU seconds in each run;
+   betas; each of the four window kernels and the fold must have
+   launched there.  The path runs three times back to back, each on a
+   fresh backend, to show the spread of its rate beside the process's
+   CPU seconds in each run;
 5. the Shelley replay: a chain forged in memory (chainsynth.py: 2304
    blocks, 2 pools, f = 4/5, epoch length 600, two transactions a block,
    k = 2160, KES depth 6) replayed from genesis through
@@ -48,17 +52,17 @@ the CUDA toolkit.  Phases:
    windows (the producer's sequential header/ledger pass, fold=True, two
    windows in flight), three times with a cleared beta cache: every
    block valid and the final ledger state_hash the forger's; each of the
-   four window kernels must launch in each run.  Then four tampered
-   chains, each stopping at its block: a KES signature flipped at 1500
-   (the proof failure wins over the envelope break at 1501), a witness
-   flipped before block 2100's header was forged (its proof), block 700
-   dropped (a sequential error), and a witness flipped after block 300
-   was forged (its proof; no body hash is checked, so the later windows
-   stay valid and go in behind it), every window each run submitted
-   finished; and 64 requests of each window of
-   the valid chain (their sequential pass rerun on the host) with the
-   tampered blocks' requests, verified on the card as the port's
-   CpuRefBackend verifies them;
+   four window kernels and the fold must launch in each run.  Then four
+   tampered chains, each stopping at its block: a KES signature flipped
+   at 1500 (the proof failure wins over the envelope break at 1501), a
+   witness flipped before block 2100's header was forged (its proof),
+   block 700 dropped (a sequential error), and a witness flipped after
+   block 300 was forged (its proof; no body hash is checked, so the
+   later windows stay valid and go in behind it), every window each run
+   submitted finished; and 64 requests of each window of the valid
+   chain (their sequential pass rerun on the host) with the tampered
+   blocks' requests, verified on the card as the port's CpuRefBackend
+   verifies them;
 6. the disk replay: phase 5's chain written to disk by the port's
    db_synth (`write_chain`, chunks of 100 slots, in the native and the
    reference format; its config.json must be what the db_synth CLI
@@ -68,8 +72,8 @@ the CUDA toolkit.  Phases:
    earlier windows verify), three times from the native DB and once
    from the reference one, then once each at a read-ahead of 1 and 2
    windows, each to the forger's state_hash with a cleared beta cache,
-   a fresh backend and each of the four window kernels launched; a run
-   with snapshots every 600 slots, a resumed
+   a fresh backend and each of the four window kernels and the fold
+   launched; a run with snapshots every 600 slots, a resumed
    reopen that replays nothing, and a replay killed at its second drain
    and resumed on a fresh TorchBackend to the same hash; a 2,100-block
    Byron->Shelley DB (db_synth's cardano chain, epoch length 500, the
@@ -353,8 +357,12 @@ SAMPLE = 16                  # blocks per window held against the CPU refs
 HBM_BYTES_PER_S = 3.35e12
 # kes_hash's lane count where the card is full (csrc_compare's too)
 KES_WIDE = 65536
-# the kernels each path must launch
-MAIN_PATH = ("ed25519_split", "vrf_verify", "gamma8", "kes_hash")
+# the kernels each path must launch: a replay's windows the four window
+# kernels and the fold; a window verified without the fold (ChainDB's
+# validate_blocks_batched, a serve flush's verify_mixed) the four alone
+MAIN_PATH = ("ed25519_split", "vrf_verify", "gamma8", "kes_hash",
+             "window_fold")
+UNFOLDED_PATH = MAIN_PATH[:4]
 PROBE_PATH = ("ed25519_split", "ed25519_verify", "vrf_verify", "gamma8")
 PROBE_ARGS = ["--reps", "5", "--n-ed", "4096", "--n-vrf", "2048", "--old"]
 # the kernels of several threads a lane, checked at a ragged lane count too
@@ -1109,7 +1117,8 @@ def sharded_phase(card: str, ext, chain, want_hash: bytes, chains: dict,
                     f"{res.n_valid}, error {res.error!r}, or a state_hash "
                     f"not the forger's")
             got = {k: r["launches"][k] for k in MAIN_PATH}
-            want = {k: single[k] * (SHARDS if sharded else 1)
+            want = {k: single[k] * (SHARDS if sharded and k != "window_fold"
+                                    else 1)
                     for k in MAIN_PATH}
             if got != want or 0 in want.values():
                 raise AssertionError(f"replay run {run} (sharded: "
@@ -1166,7 +1175,7 @@ def sharded_phase(card: str, ext, chain, want_hash: bytes, chains: dict,
                 before = dict(K.LAUNCHES)
                 st = backend.submit_window(reqs, nxt)
                 ok, _betas = backend.finish_window(st)
-                want = {k: per for k, n in zip(MAIN_PATH, (
+                want = {k: per for k, n in zip(UNFOLDED_PATH, (
                     st["ne"], st["nv"], st["nb"], st["nk"])) if n}
                 if delta(before) != want:
                     raise AssertionError(f"window {w} over {d} shards: "
@@ -1371,7 +1380,8 @@ def chaindb_phase(card: str, ext, chain, want_hash: bytes,
         runs = []
         for run in range(RESTART_RUNS):
             db, rec = restart(d, TorchBackend())
-            missing = [k for k in MAIN_PATH if rec["launches"][k] == 0]
+            missing = [k for k in UNFOLDED_PATH
+                       if rec["launches"][k] == 0]
             if db.tip_point() != point_of(chain[-1]) or db.invalid or \
                     db.current_ledger.ledger.state_hash() != want_hash or \
                     rec["validate_calls"] != [n_vol] or missing:
@@ -1825,7 +1835,7 @@ def node_phase(card: str, ext, chain, want_hash: bytes,
     launches = dict(K.LAUNCHES)
     count(launches)
     expect_failures(rec, [no_isect])
-    missing = [k for k in MAIN_PATH if launches[k] == 0]
+    missing = [k for k in UNFOLDED_PATH if launches[k] == 0]
     if fdb.tip_point() != point_of(chain[-1]) or fdb.invalid or \
             fdb.current_ledger.ledger.state_hash() != want_hash or missing:
         raise AssertionError(
@@ -2283,7 +2293,7 @@ def diffusion_phase(card: str, ext, chain, want_hash: bytes,
         await sim.sleep(wait)
 
         async def sync(label, mempool=False, local=None, lose_at=None,
-                       kernels=MAIN_PATH):
+                       kernels=UNFOLDED_PATH):
             """One follower from genesis to the chain's tip; its record.
             Each of `kernels` must launch (a warm key cache ships no KES
             jobs: the paths it has finished)."""
@@ -2486,7 +2496,8 @@ def diffusion_phase(card: str, ext, chain, want_hash: bytes,
 
         # -- leg 3: a peer lost mid-sync
         rec = await sync("follower2", lose_at=DIFF_LOSE_AT,
-                         kernels=[k for k in MAIN_PATH if k != "kes_hash"])
+                         kernels=[k for k in UNFOLDED_PATH
+                                  if k != "kes_hash"])
         count(rec["launches"])
         lost, w = rec["lost"], rec["worker"]
         lost_addr = addrs[0]
@@ -2594,7 +2605,7 @@ def diffusion_phase(card: str, ext, chain, want_hash: bytes,
                 "fleet": json.dumps(rc.fleet, sort_keys=True)
                 == json.dumps(rp.fleet, sort_keys=True)}
         bad = {w: _chaos_checks(name, r) for w, (r, _s, _l) in runs.items()}
-        missing = [k for k in MAIN_PATH if lc[k] == 0]
+        missing = [k for k in UNFOLDED_PATH if lc[k] == 0]
         if not all(same.values()) or any(bad.values()) or missing:
             first = next((i for i, (a, b) in enumerate(zip(rc.trace,
                                                            rp.trace))
@@ -3118,7 +3129,7 @@ def protocols_phase(card: str, ext, chain, want_hash: bytes, follower_db,
     io_s = time.perf_counter() - t
     launches = out.pop("launches")
     count(launches)
-    missing = [k for k in MAIN_PATH if launches[k] == 0]
+    missing = [k for k in UNFOLDED_PATH if launches[k] == 0]
     try:
         ping = json.loads(out["ping_stdout"].strip().splitlines()[-1])
     except (IndexError, json.JSONDecodeError):
@@ -3572,7 +3583,7 @@ def golden_leg(dev) -> dict:
         raise AssertionError("golden header rejected by TorchBackend")
     validate_s = time.perf_counter() - t
     validate_launches = _launched(counted)
-    if cuda and any(validate_launches[k] == 0 for k in MAIN_PATH):
+    if cuda and any(validate_launches[k] == 0 for k in UNFOLDED_PATH):
         raise AssertionError(f"golden header: a window kernel did not "
                              f"launch {validate_launches}")
     log(f"conformance leg 1: the golden Shelley header parses, re-encodes "
@@ -3742,7 +3753,7 @@ def cardano_leg(dev) -> dict:
                            "failed_checks": cardano_checks(res,
                                                            cfg["ladder"])}
         card, cpp = runs["card"], runs["cpp"]
-        missing = [k for k in MAIN_PATH if card["launches"][k] == 0] \
+        missing = [k for k in UNFOLDED_PATH if card["launches"][k] == 0] \
             if dev.type == "cuda" else []
         same = card["digest"] == cpp["digest"]
         if not same or card["failed_checks"] or cpp["failed_checks"] or \
@@ -3920,7 +3931,7 @@ def restart_leg(dev) -> dict:
             "ok": not r.failures and r.common_prefix_ok(cfg.k)
             and r.min_length() >= 15 and max(heads) - min(heads) <= 3}
     card, cpp = runs["card"], runs["cpp"]
-    missing = [k for k in MAIN_PATH if card["launches"][k] == 0] \
+    missing = [k for k in UNFOLDED_PATH if card["launches"][k] == 0] \
         if dev.type == "cuda" else []
     same = (card["chains"], card["ledgers"]) == (cpp["chains"],
                                                  cpp["ledgers"])
@@ -4072,11 +4083,10 @@ def main() -> int:
                                          validate, windowgen)
         from ouroboros_tpu_torch.crypto import (
             blake2b as B2, ed25519 as E, ed25519_ref, edwards as ed,
-            field as F, kernels as K, vrf as V, vrf_ref)
+            field as F, fold as FD, kernels as K, vrf as V, vrf_ref)
         from ouroboros_tpu_torch.crypto.backend import (
             CpuRefBackend, Ed25519Req, VrfReq)
-        from ouroboros_tpu_torch.crypto.torch_backend import (
-            TorchBackend, fold_window)
+        from ouroboros_tpu_torch.crypto.torch_backend import TorchBackend
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
@@ -4170,12 +4180,30 @@ def main() -> int:
               "gamma8": beta_args, "kes_hash": kes_args,
               "ed25519_verify": tuple(torch.from_numpy(a).to(dev)
                                       for a in full_arrays)}
+    # the verdict fold over the four kernels' packed buffer, as a window
+    # has it: each lane owned by its own request (the Ed25519 lanes first),
+    # lanes the host parse rejected and padding at FOLD_SENT
+    ne, nv, nb, nk = (inputs[k][0].shape[-1] for k in UNFOLDED_PATH)
+    fold_packed = torch.cat([
+        K.ed25519_split(*ed_args).to(torch.uint8),
+        K.vrf_verify(*vrf_args).reshape(-1),
+        K.gamma8(*beta_args).reshape(-1),
+        K.kes_hash(*kes_args).to(torch.uint8)])
+    ed_own = np.where([k < len(ed_t) and ed_ok[k] for k in range(ne)],
+                      np.arange(ne), FD.FOLD_SENT)
+    vrf_own = np.where([j < len(vrf_t) and v_ok[j] for j in range(nv)],
+                       ne + np.arange(nv), FD.FOLD_SENT)
+    inputs["window_fold"] = (fold_packed, ne, nv, nb, nk, *(
+        torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        for a in (ed_own.astype(np.int32), vrf_own.astype(np.int32),
+                  v_pf[:, :32], v_pf[:, 32:48])))
     # the chain kernels at the JAX shape, the longer chain of mul and dbl
     chains = [name for name, _o, _k in microbench_field.CHAINS]
     ma, mb = microbench_field.inputs(CHAIN_LANES[0], dev)
     for name, ops, (_k1, k2) in microbench_field.CHAINS:
         inputs[name] = (ma, mb, ops[0], k2)
     lanes = {k: v[0].shape[-1] for k, v in inputs.items()}
+    lanes["window_fold"] = ne + nv
     log("lanes (each path's widths):", lanes)
     wrappers = {name: getattr(K, name) for name in K.KERNELS}
     outputs, max_err = {}, {}
@@ -4246,6 +4274,19 @@ def main() -> int:
     if ed_got[1] or ed_ok[2] or ed_got[3] or oks[1] or oks[2] or oks[3] \
             or g8[1] is not None or any(kes_got[1:4]):
         raise AssertionError("a tampered lane passed")
+    # the fold's first failing request: the lowest lane the host parse
+    # passed and the card failed, the VRF challenge checked on the host
+    oks_all, _b = V._finish(outputs["vrf_verify"], v_ok, v_gok, v_sok, v_pf,
+                            len(vrf_t))
+    want_bad = min([FD.FOLD_SENT]
+                   + [k for k in range(len(ed_t)) if ed_ok[k]
+                      and not ed_got[k]]
+                   + [ne + j for j in range(len(vrf_t)) if v_ok[j]
+                      and not oks_all[j]])
+    got_bad = int.from_bytes(outputs["window_fold"][:4].tobytes(), "little")
+    if got_bad != want_bad:
+        raise AssertionError(f"window_fold: first failing request "
+                             f"{got_bad}, the host's {want_bad}")
     log(f"sample lanes == CPU references, all {len(kes_m)} KES jobs == "
         f"hashlib (tampered lanes rejected)")
     # kes_hash where the card is full: random jobs, lane j valid for
@@ -4281,6 +4322,8 @@ def main() -> int:
         n = lanes[name]
         if name == "kes_hash":
             ops = n * B2.INT_OPS
+        elif name == "window_fold":
+            ops = nv * FD.INT_OPS
         elif name in chains:
             ops = microbench_field.int_ops(args[2], args[3], n)
         else:
@@ -4290,8 +4333,8 @@ def main() -> int:
             ops = n * (100 * F.COUNTS["mul"] + 55 * F.COUNTS["sqr"])
         nbytes = sum(a.numel() * a.element_size() for a in args
                      if torch.is_tensor(a)) + outputs[name].nbytes
-        ops_ms = ops / (issue_rate if name == "kes_hash" else int_rate) \
-            * 1e3
+        ops_ms = ops / (issue_rate if name in ("kes_hash", "window_fold")
+                        else int_rate) * 1e3
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         chain = {"chain": f"{args[2]}, k = {args[3]}"} if name in chains \
             else {}
@@ -4310,25 +4353,17 @@ def main() -> int:
             f"{max(ops_ms, bytes_ms):.4f} ms ({ops} int ops, {nbytes} "
             f"bytes), {n} lanes"
             + (f" ({chain['chain']})" if chain else ""))
-    packed = torch.cat([
-        K.ed25519_split(*ed_args).to(torch.uint8),
-        K.vrf_verify(*vrf_args).reshape(-1),
-        K.gamma8(*beta_args).reshape(-1),
-        K.kes_hash(*kes_args).to(torch.uint8)])
-    ne, nv, nb, nk = (lanes[k] for k in MAIN_PATH)
-    own = [torch.arange(n, dtype=torch.int32, device=dev) for n in (ne, nv)]
-    gam = torch.from_numpy(np.ascontiguousarray(v_pf[:, :32])).to(dev)
-    cb = torch.from_numpy(np.ascontiguousarray(v_pf[:, 32:48])).to(dev)
-    fold_ms = D.event_ms(lambda: fold_window(packed, ne, nv, nb, nk, own[0],
-                                          own[1], gam, cb), reps=5)
+    fold_ms = next(e["plain_ms"] for e in report
+                   if e["name"] == "window_fold")
     wit = [r.vk for b in windows[0] for r in b[windowgen.FIRST_WITNESS:]]
     yw, sgn, _ok = E._decode_compressed(
         np.frombuffer(b"".join(wit), np.uint8).reshape(-1, 32))
     ya = F.limbs_from_words(torch.from_numpy(yw).to(dev))
     sg = torch.from_numpy(sgn).to(dev)
     fill_ms = D.event_ms(lambda: E.a128_core(ya, sg), reps=5)
-    log(f"fold (torch ops, {ne}/{nv}/{nb}/{nk} lanes): {fold_ms:.3f} ms; "
-        f"a128 fill (torch ops, {len(wit)} keys): {fill_ms:.3f} ms")
+    log(f"fold's plain version (torch ops, {ne}/{nv}/{nb}/{nk} lanes): "
+        f"{fold_ms:.3f} ms; a128 fill (torch ops, {len(wit)} keys): "
+        f"{fill_ms:.3f} ms")
 
     # -- 4. the main path -----------------------------------------------------
     bad_req = {}

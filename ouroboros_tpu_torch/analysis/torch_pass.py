@@ -50,7 +50,7 @@ SCAN_DIRS = ("ouroboros_tpu_torch/crypto", "ouroboros_tpu_torch/parallel")
 WRAPPERS = frozenset({
     "_launch", "_chain", "ed25519_split", "vrf_verify", "gamma8",
     "kes_hash", "ed25519_verify", "field_chain", "field_chain_lp",
-    "point_chain", "point_chain_x4"})
+    "point_chain", "point_chain_x4", "window_fold"})
 _KERNELS_ALIASES = frozenset({"K", "kernels"})
 _SYNC_METHODS = frozenset({"item", "cpu", "tolist", "numpy"})
 _SYNC_CALLS = frozenset({"torch.cuda.synchronize"})

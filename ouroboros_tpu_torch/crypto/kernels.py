@@ -6,11 +6,15 @@ in CUDA C++ under `../csrc/`: the five of
 path, and the full 256-bit Ed25519 verify of the standalone batch API),
 and the field-op and point-op chains of `experiments/microbench_field.py`
 (`field_chain` / `field_chain_lp` for the port's two field products,
-`point_chain` / `point_chain_x4` for its two point-op forms).  They are
-compiled with nvcc for sm_90a into one shared library with a plain C
-interface, loaded with ctypes.  The build runs at first use, into
-`ouroboros_tpu_torch/build/` (one nvcc per source, all started
-together, then one link), keyed by a hash of the sources and flags.
+`point_chain` / `point_chain_x4` for its two point-op forms).  Beside
+them, `window_fold` stands for a program the JAX package leaves to XLA,
+which fuses it: the validation window's verdict fold
+(`jax_backend._fold_program`), whose torch-op form issued ~28,000 eager
+ops a window.  They are compiled with nvcc for sm_90a into one shared
+library with a plain C interface, loaded with ctypes.  The build runs at
+first use, into `ouroboros_tpu_torch/build/` (one nvcc per source, all
+started together, then one link), keyed by a hash of the sources and
+flags.
 
 Each verify wrapper takes packed (8, N) uint32 words: the JAX call's
 layout for the four window kernels, and for `ed25519_verify` the words of
@@ -22,7 +26,9 @@ script's inputs), an operation name and a count.  `ed25519_split`,
 `vrf_verify` eight (`csrc/ge25519_x4.cuh`: one thread a point
 coordinate); `gamma8` and `field_chain_lp` run eight, each field product
 spread over them (`csrc/fe25519_lp.cuh`); `kes_hash` two, two columns of
-the Blake2b state each; the others run one thread a lane.
+the Blake2b state each; the others run one thread a lane.  `window_fold`
+takes the packed buffer of a window and the fold's host inputs and
+returns the fold's bytes (`fold.fold_window`'s layout).
 
 On a CPU tensor a wrapper runs the kernel's plain PyTorch version (named
 in `KERNELS`); on a CUDA tensor it launches the kernel on the current
@@ -52,6 +58,7 @@ from .. import device as device_mod
 from . import blake2b as B2
 from . import ed25519 as E
 from . import field as F
+from . import fold as FD
 from . import vrf as V
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -109,6 +116,10 @@ KERNELS = {k.name: k for k in (
            "ouroboros_tpu_torch/csrc/point_chain.cu",
            "experiments/microbench_field.py:186",
            E.point_chain_core, 4, 64),
+    Kernel("window_fold", "ouro_window_fold",
+           "ouroboros_tpu_torch/csrc/window_fold.cu",
+           "ouroboros_tpu/crypto/jax_backend.py:687",
+           FD.fold_window, 1, 64),
 )}
 
 # launches per kernel since the last reset_launches(); counted only where a
@@ -195,7 +206,10 @@ ENTRY_ARGS = {"ouro_ed25519_split": (9, 0), "ouro_vrf_verify": (8, 0),
               "ouro_field_chain": (3, 2),     # op, k
               "ouro_field_chain_lp": (3, 2),  # op, k
               "ouro_point_chain": (3, 2),     # kind, k
-              "ouro_point_chain_x4": (3, 2)}  # kind, k
+              "ouro_point_chain_x4": (3, 2),  # kind, k
+              # packed, ed_own, vrf_own, gamma, c, the slot; ne, nv, nb, nk;
+              # n = ne + nv
+              "ouro_window_fold": (7, 4)}
 
 
 def bind(lib: ctypes.CDLL) -> dict:
@@ -342,6 +356,45 @@ def ed25519_verify(Aw, signA, Rw, signR, sw, kw):
         _check(name, t, torch.int32, (n,), dev)
     out = torch.empty(n, dtype=torch.int32, device=dev)
     return _launch("ed25519_verify", (Aw, signA, Rw, signR, sw, kw), out, n)
+
+
+# (device index, raw stream) -> the window_fold kernel's int32 slot:
+# [running minimum, ticket], (FOLD_SENT, 0) between launches.  Each
+# launch leaves it so, and launches on one stream run in order, so one
+# slot a stream serves every fold on it.
+_FOLD_SLOTS: dict = {}
+
+
+def _fold_slot(dev: torch.device) -> torch.Tensor:
+    key = (dev.index, _raw_stream(dev.index))
+    slot = _FOLD_SLOTS.get(key)
+    if slot is None:
+        slot = _FOLD_SLOTS.setdefault(key, torch.tensor(
+            [FD.FOLD_SENT, 0], dtype=torch.int32, device=dev))
+    return slot
+
+
+def window_fold(packed, ne: int, nv: int, nb: int, nk: int, ed_own,
+                vrf_own, gamma_b, c_b):
+    """The verdict fold over a window's packed buffer (fold.fold_window):
+    (ne + 130 nv + 33 nb + nk,) uint8, (ne,) and (nv,) int32 request
+    indices, (nv, 32) and (nv, 16) uint8 gamma and c bytes -> (4 + nk +
+    33 nb,) uint8, the first failing index (FOLD_SENT for none) in four
+    little-endian bytes, the KES job flags and the beta rows."""
+    if packed.device.type == "cpu":
+        return FD.fold_window(packed, ne, nv, nb, nk, ed_own, vrf_own,
+                              gamma_b, c_b)
+    dev = packed.device
+    _check("packed", packed, torch.uint8, (ne + 130 * nv + 33 * nb + nk,),
+           dev)
+    _check("ed_own", ed_own, torch.int32, (ne,), dev)
+    _check("vrf_own", vrf_own, torch.int32, (nv,), dev)
+    _check("gamma_b", gamma_b, torch.uint8, (nv, 32), dev)
+    _check("c_b", c_b, torch.uint8, (nv, 16), dev)
+    out = torch.empty(4 + nk + 33 * nb, dtype=torch.uint8, device=dev)
+    return _launch("window_fold", (packed, ed_own, vrf_own, gamma_b, c_b,
+                                   _fold_slot(dev)),
+                   out, ne + nv, ne, nv, nb, nk)
 
 
 def _chain(kernel: str, ops: tuple, a, b, op: str, k: int) -> torch.Tensor:

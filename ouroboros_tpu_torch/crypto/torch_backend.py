@@ -4,9 +4,10 @@ Ported from `ouroboros_tpu/crypto/jax_backend.py`.  A replay window's
 whole device workload (the mixed Ed25519 / VRF / KES verification of its
 requests plus the VRF betas the NEXT window's sequential pass needs) is
 submitted at once: the four CUDA kernels (kernels.py) and, with
-`fold=True`, the verdict fold are enqueued on the backend's own stream
-into one packed uint8 buffer with the JAX layout, copied without blocking
-into pinned host memory, and an event is recorded.  `finish_window`
+`fold=True`, the verdict fold (the `window_fold` kernel) are enqueued on
+the backend's own stream into one packed uint8 buffer with the JAX
+layout, copied without blocking into pinned host memory, and an event is
+recorded.  `finish_window`
 waits on that event.  Two windows can be in flight: the producer packs
 and submits window w+1 while the consumer drains window w.
 
@@ -41,7 +42,8 @@ wait and parse.  Inside `window.submit`, in a window's order:
 `precompute.fill` and its `precompute.fill_wait` inside it on missing
 keys), `submit.launch` (each kernel's staging and launch),
 `submit.attach` (the fold's host-known failures and lane owners) and
-then `window.fold` (the verdict fold's staging and torch ops).
+then `window.fold` (the verdict fold's one staging copy and its
+launch).
 """
 from __future__ import annotations
 
@@ -61,10 +63,9 @@ from . import kes as kes_mod
 from . import vrf as V
 from .backend import (CryptoBackend, Ed25519Req, KesReq, VrfReq,
                       WindowVerdict)
+from .fold import FOLD_SENT, fold_window  # noqa: F401  (a re-export)
 from .precompute import PrecomputeCache
 
-# fold sentinel: "no failing request" (int32 max beats every real index)
-FOLD_SENT = 0x7FFFFFFF
 MIN_BUCKET = 128
 
 
@@ -92,34 +93,6 @@ def stage(a: np.ndarray, device: torch.device) -> torch.Tensor:
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t
-
-
-def fold_window(packed, ne: int, nv: int, nb: int, nk: int,
-                ed_own, vrf_own, gamma_b, c_b):
-    """Verdict fold over one window's packed buffer (jax_backend
-    _fold_program): the first failing request index (FOLD_SENT = none) as
-    4 little-endian bytes, then the KES job flags and the beta rows.
-    `ed_own` / `vrf_own` map lanes to request indices (FOLD_SENT for
-    host-known failures and padding)."""
-    mins = []
-    off = 0
-    sent = torch.full((), FOLD_SENT, dtype=torch.int64, device=packed.device)
-    if ne:
-        ed_ok = packed[:ne]
-        mins.append(torch.where(ed_ok != 0, sent, ed_own.long()).min())
-        off += ne
-    if nv:
-        rows = packed[off:off + nv * 130].view(nv, 130)
-        ok = V.challenge_ok_device(rows, gamma_b, c_b)
-        mins.append(torch.where(ok, sent, vrf_own.long()).min())
-        off += nv * 130
-    beta_part = packed[off:off + nb * 33]
-    off += nb * 33
-    kes_part = packed[off:off + nk]
-    m = torch.stack(mins).min() if mins else sent
-    shifts = torch.tensor([0, 8, 16, 24], device=packed.device)
-    idx4 = ((m >> shifts) & 0xFF).to(torch.uint8)
-    return torch.cat([idx4, kes_part, beta_part])
 
 
 class TorchBackend(CryptoBackend):
@@ -427,15 +400,30 @@ class TorchBackend(CryptoBackend):
         if packed is None:
             return None
         with _spans.span("window.fold", cat="dispatch"):
-            return fold_window(packed, state["ne"], state["nv"], state["nb"],
-                               state["nk"], self._dev(ed_own),
-                               self._dev(vrf_own), self._dev(gamma_b),
-                               self._dev(c_b))
+            return self._fold(packed, state["ne"], state["nv"], state["nb"],
+                              state["nk"], ed_own, vrf_own, gamma_b, c_b)
+
+    def _fold(self, packed, ne: int, nv: int, nb: int, nk: int, ed_own,
+              vrf_own, gamma_b, c_b) -> torch.Tensor:
+        """The `window_fold` kernel over `packed` (on this device) with the
+        host arrays of `_fold_owners`, staged as one buffer (one pinned
+        copy on CUDA) of which the kernel's four inputs are views."""
+        parts = [np.ascontiguousarray(a).view(np.uint8).reshape(-1)
+                 for a in (ed_own, vrf_own, gamma_b, c_b)]
+        host = np.concatenate(parts)
+        # a window of betas and KES jobs alone has no lanes to stage (and
+        # an empty array comes in with stride 0, which no dtype view takes)
+        buf = (self._dev(host) if host.size else
+               torch.empty(0, dtype=torch.uint8, device=self.device))
+        ed_t, vrf_t, gamma_t, c_t = torch.split(buf, [p.size for p in parts])
+        return K.window_fold(packed, ne, nv, nb, nk, ed_t.view(torch.int32),
+                             vrf_t.view(torch.int32), gamma_t.view(nv, 32),
+                             c_t.view(nv, 16))
 
     def _fold_owners(self, state):
         """The fold's host side: sets `host_first_bad` in `state` and
         returns the lane-to-request maps and the VRF proofs' gamma and c
-        bytes that fold_window takes."""
+        bytes that `_fold` stages for the `window_fold` kernel."""
         n = state["n"]
         ne, nv = state["ne"], state["nv"]
         covered = np.zeros(max(n, 1), dtype=bool)

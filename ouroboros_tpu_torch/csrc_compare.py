@@ -43,13 +43,14 @@ from . import device as D
 from . import microbench_field as MB
 from .crypto import blake2b as B2
 from .crypto import field as F
+from .crypto import fold as FD
 from .crypto import kernels as K
 
 # the main path's lane counts (chip_smoke.py phase 2); kes_hash also at
 # eight times its own, where the card is full
 WINDOW_LANES = {"ed25519_split": (4096,), "vrf_verify": (2048,),
                 "gamma8": (2048,), "ed25519_verify": (4096,),
-                "kes_hash": (8192, 65536)}
+                "kes_hash": (8192, 65536), "window_fold": (2048,)}
 # kes_hash's launch shapes (threads a lane, block) whose floor is timed
 KES_SHAPES = ((1, 32), (1, 128), (2, 64))
 # the wrappers whose launch is timed step by step: the smallest and the
@@ -106,9 +107,79 @@ def random_limbs(rng, dev, n: int) -> list[torch.Tensor]:
             .to(torch.int32).to(dev) for _ in range(2)]
 
 
+# the fold's cases (`fold_case`): every lane valid, one failure of each
+# kind, two failures of two kinds, failures the host already knows
+FOLD_CASES = ("valid", "ed_lane", "c_flip", "okY", "okG", "ed_and_vrf",
+              "host_known", "random")
+
+
+def fold_case(rng, ne: int, nv: int, nb: int, nk: int, case: str):
+    """Inputs of the verdict fold (`fold.fold_window`) as numpy arrays,
+    (packed, ed_own, vrf_own, gamma, c), and the first failing request
+    index it must find (FOLD_SENT for none).  The last quarter of each
+    kind's lanes is padding (owner FOLD_SENT, verdict byte and row
+    zero), as a padded window has; the others are requests numbered in a
+    random order across both kinds, each VRF row random bytes with c its
+    challenge (SHA-512 of suite || 0x02 || H || Gamma || U || V) and both
+    decompression flags set.  `case` (one of FOLD_CASES) says which lanes
+    fail: none; one Ed25519 lane (its byte 0); one VRF lane by c, by
+    okY or by okG; an Ed25519 and a VRF lane, the VRF one's request the
+    lower; lanes of both kinds whose owners are FOLD_SENT (failures the
+    host knows already); or a random third of each kind."""
+    sent = FD.FOLD_SENT
+    ue, uv = ne - ne // 4, nv - nv // 4
+    order = rng.permutation(ue + uv).astype(np.int32)
+    ed_own = np.full(ne, sent, np.int32)
+    vrf_own = np.full(nv, sent, np.int32)
+    ed_own[:ue], vrf_own[:uv] = order[:ue], order[ue:]
+    ed_ok = np.zeros(ne, np.uint8)
+    ed_ok[:ue] = rng.integers(1, 256, ue)
+    rows = np.zeros((nv, 130), np.uint8)
+    rows[:uv, :128] = rng.integers(0, 256, (uv, 128))
+    rows[:uv, 128:] = rng.integers(1, 256, (uv, 2))
+    gamma = rng.integers(0, 256, (nv, 32), dtype=np.uint8)
+    c = rng.integers(0, 256, (nv, 16), dtype=np.uint8)
+    for j in range(uv):
+        pre = (b"\x04\x02" + rows[j, :32].tobytes() + gamma[j].tobytes()
+               + rows[j, 32:96].tobytes())
+        c[j] = np.frombuffer(hashlib.sha512(pre).digest()[:16], np.uint8)
+    bad_ed: list[int] = []
+    bad_vrf: list[int] = []
+    if case in ("ed_lane", "ed_and_vrf", "host_known") and ue:
+        bad_ed = [int(rng.integers(0, ue))]
+    if case in ("c_flip", "okY", "okG", "ed_and_vrf", "host_known") and uv:
+        bad_vrf = [int(rng.integers(0, uv))]
+    if case == "random":
+        bad_ed = list(np.flatnonzero(rng.random(ue) < 1 / 3))
+        bad_vrf = list(np.flatnonzero(rng.random(uv) < 1 / 3))
+    if case == "ed_and_vrf" and bad_ed and bad_vrf:
+        k, j = bad_ed[0], bad_vrf[0]
+        lo, hi = sorted((ed_own[k], vrf_own[j]))
+        vrf_own[j], ed_own[k] = lo, hi
+    for k in bad_ed:
+        ed_ok[k] = 0
+    for i, j in enumerate(bad_vrf):
+        kind = case if case in ("okY", "okG") else \
+            ("c_flip", "okY", "okG")[i % 3]
+        if kind == "c_flip":
+            c[j, int(rng.integers(0, 16))] ^= 1 << int(rng.integers(0, 8))
+        else:
+            rows[j, 128 if kind == "okY" else 129] = 0
+    if case == "host_known":
+        ed_own[bad_ed] = sent
+        vrf_own[bad_vrf] = sent
+    beta = rng.integers(0, 256, nb * 33, dtype=np.uint8)
+    kes = rng.integers(0, 2, nk, dtype=np.uint8)
+    packed = np.concatenate([ed_ok, rows.reshape(-1), beta, kes])
+    want = min([sent] + [int(ed_own[k]) for k in bad_ed]
+               + [int(vrf_own[j]) for j in bad_vrf])
+    return (packed, ed_own, vrf_own, gamma, c), want
+
+
 def random_args(name: str, rng, dev, n: int) -> list:
     """Random inputs of kernel `name` on n lanes: words (most off the
-    curve), signs, limbs, or Blake2b jobs a third of which do not match."""
+    curve), signs, limbs, Blake2b jobs a third of which do not match, or
+    a fold's buffer (`fold_case`'s random third)."""
     def w(rows, clear_top=True):
         a = rng.integers(0, 2**32, (rows, n), dtype=np.uint64)
         a = a.astype(np.uint32)
@@ -131,6 +202,12 @@ def random_args(name: str, rng, dev, n: int) -> list:
         return [w(8), sign()]
     if name in CHAIN_OPS:
         return random_limbs(rng, dev, n) + [CHAIN_OPS[name][-1], 5]
+    if name == "window_fold":       # n VRF lanes, twice as many Ed25519
+        shape = (2 * n, n, n, 2 * n)
+        (packed, *own), _want = fold_case(rng, *shape, "random")
+        packed, eo, vo, gamma, c = (torch.from_numpy(a).to(dev)
+                                    for a in (packed, *own))
+        return [packed, *shape, eo, vo, gamma, c]
     msgs = rng.integers(0, 256, (n, 64), dtype=np.uint8)
     digs = np.stack([np.frombuffer(hashlib.blake2b(
         m.tobytes(), digest_size=32).digest(), np.uint8) for m in msgs])

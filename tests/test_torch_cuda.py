@@ -15,6 +15,7 @@ import torch
 
 from ouroboros_tpu_torch import csrc_compare as CC
 from ouroboros_tpu_torch.crypto import ed25519_ref, kes, vrf_ref
+from ouroboros_tpu_torch.crypto import fold as FD
 from ouroboros_tpu_torch.crypto import kernels as K
 from ouroboros_tpu_torch.crypto.backend import (CpuRefBackend, Ed25519Req,
                                                 KesReq, VrfReq)
@@ -104,6 +105,76 @@ def test_field_chains_on_garbage_limbs(dev, name):
             _launch_and_compare(dev, name, [a, b, op, k])
 
 
+# (ne, nv, nb, nk): the main path's windows (light and loaded), ragged
+# counts, and each part of the buffer empty
+FOLD_SHAPES = [(4096, 2048, 2048, 4096), (131072, 2048, 2048, 8192),
+               (1, 1, 1, 1), (97, 7, 3, 5), (4099, 2049, 13, 0),
+               (0, 2048, 2048, 0), (131072, 0, 0, 8192), (0, 0, 0, 0)]
+
+
+@pytest.mark.parametrize("shape", FOLD_SHAPES)
+@pytest.mark.parametrize("case", CC.FOLD_CASES)
+def test_window_fold_equals_plain_fold(dev, case, shape):
+    """The fold kernel against its plain version (torch ops on the same
+    card), byte for byte, on each of `fold_case`'s cases, twice in a row
+    on one stream (the slot is reset between launches), one launch a
+    call; its index is the failure the case planted."""
+    rng = np.random.default_rng(CC.FOLD_CASES.index(case) + sum(shape))
+    arrays, want = CC.fold_case(rng, *shape, case)
+    packed, *rest = (torch.from_numpy(a).to(dev) for a in arrays)
+    before = K.LAUNCHES["window_fold"]
+    got = [K.window_fold(packed, *shape, *rest) for _ in range(2)]
+    plain = FD.fold_window(packed, *shape, *rest)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["window_fold"] == before + 2
+    for g in got:
+        assert g.device.type == "cuda"
+        assert g.cpu().numpy().tobytes() == plain.cpu().numpy().tobytes()
+    assert int.from_bytes(got[0][:4].cpu().numpy().tobytes(),
+                          "little") == want
+
+
+def test_fold_is_one_launch_and_one_copy(dev):
+    """TorchBackend's fold of a light window on the card: under the
+    profiler, one staging copy to the card and one kernel, the fold's,
+    and no other device work; on the host no torch op but allocation,
+    pinning, the copy and views."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    shape = (4096, 2048, 2048, 4096)
+    arrays, want = CC.fold_case(np.random.default_rng(5), *shape, "c_flip")
+    be = TorchBackend(device=dev)
+    packed = torch.from_numpy(arrays[0]).to(dev)
+    torch.cuda.synchronize()
+    with be._on_stream():
+        be._fold(packed, *shape, *arrays[1:])          # the stream's slot
+        torch.cuda.synchronize()
+        for _trace in range(5):     # CUPTI may hand records over late
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                out = be._fold(packed, *shape, *arrays[1:])
+                torch.cuda.synchronize()
+            on_card = [e.name for e in prof.events()
+                       if e.device_type == DeviceType.CUDA]
+            if any("window_fold_kernel" in n for n in on_card):
+                break
+    copies = [n for n in on_card if "Memcpy" in n or "Memset" in n]
+    assert len(on_card) == 2 and len(copies) == 1 and "HtoD" in copies[0]
+    assert any("window_fold_kernel" in n for n in on_card)
+    host_ops = {e.name for e in prof.events()
+                if e.device_type == DeviceType.CPU
+                and e.name.startswith("aten::")}
+    assert host_ops <= {"aten::empty", "aten::empty_strided", "aten::to",
+                        "aten::_to_copy", "aten::copy_", "aten::pin_memory",
+                        "aten::_pin_memory", "aten::is_pinned",
+                        "aten::set_", "aten::split",
+                        "aten::split_with_sizes", "aten::narrow",
+                        "aten::slice", "aten::view",
+                        "aten::as_strided", "aten::alias", "aten::detach",
+                        "aten::lift_fresh"}, host_ops
+    assert int.from_bytes(out[:4].cpu().numpy().tobytes(), "little") == want
+
+
 def test_window_on_the_card_matches_cpu_ref(dev):
     sk = hashlib.sha256(b"card-ed").digest()
     vsk = hashlib.sha256(b"card-vrf").digest()
@@ -132,8 +203,9 @@ def test_replay_of_the_fixture_chain_on_the_card(dev):
     """tests/test_replay_pipeline.py's 24-block chain (seed b"rp", KES
     depth 4), forged with the port, replayed at window 8 through
     TorchBackend on the card: every block valid with the forger's state
-    hash, the four window kernels launched, a KES signature flipped at
-    block 13 stopping there, as on the port's CpuRefBackend."""
+    hash, the four window kernels launched and the fold once a folded
+    window, a KES signature flipped at block 13 stopping there, as on the
+    port's CpuRefBackend."""
     from fractions import Fraction
 
     from ouroboros_tpu_torch.consensus.batch import replay_blocks_pipelined
@@ -167,25 +239,41 @@ def test_replay_of_the_fixture_chain_on_the_card(dev):
             prev = h
             break
         slot += 1
+    def counted(backend):
+        """`backend` with its folds counted: each is a window that had a
+        packed buffer, and launches window_fold once."""
+        fold = backend._fold
+
+        def count(*a):
+            folds[0] += 1
+            return fold(*a)
+        backend._fold = count
+        return backend
     GLOBAL_BETA_CACHE.clear()
     K.reset_launches()
+    folds = [0]
     res = replay_blocks_pipelined(ext, blocks, ext.initial_state(),
-                                  backend=TorchBackend(device=dev), window=8)
+                                  backend=counted(TorchBackend(device=dev)),
+                                  window=8)
     assert res.all_valid and res.n_valid == 24
     assert (res.final_state.ledger.state_hash()
             == state.ledger.state_hash())
     assert all(K.LAUNCHES[k] > 0 for k in ("ed25519_split", "vrf_verify",
                                             "gamma8", "kes_hash"))
+    assert K.LAUNCHES["window_fold"] == folds[0] >= 3
     bad = list(blocks)
     sig = bytearray(bad[13].header.get(KES_FIELD))
     sig[8] ^= 1
     bad[13] = ProtocolBlock(
         bad[13].header.with_fields(**{KES_FIELD: bytes(sig)}), ())
-    for backend in (TorchBackend(device=dev), CpuRefBackend()):
+    for backend in (counted(TorchBackend(device=dev)), CpuRefBackend()):
         GLOBAL_BETA_CACHE.clear()
+        K.reset_launches()
+        folds = [0]
         res = replay_blocks_pipelined(ext, bad, ext.initial_state(),
                                       backend=backend, window=8)
         assert (res.all_valid, res.n_valid) == (False, 13)
+        assert K.LAUNCHES["window_fold"] == folds[0]
 
 
 def test_disk_replay_of_a_cardano_db_on_the_card(dev, tmp_path, capsys):

@@ -8,7 +8,9 @@ ed25519_verify, is held to the JAX package in test_torch_full_verify.py).
                  vs ed25519_jax.verify_full_split_words_kernel (slow)
 - vrf_verify:    vrf.vrf_verify_words_core
                  vs vrf_jax.vrf_verify_words_kernel (slow)
-- the fold's challenge_ok_device against vrf_jax's.
+- the fold's challenge_ok_device against vrf_jax's, and the whole fold
+  (window_fold's plain version, fold.fold_window) against
+  jax_backend's _fold_program.
 
 The two ladder kernels' XLA forms take minutes to compile on the CPU, so
 those comparisons are `slow`; the same lanes stay in tier-1 against the
@@ -35,8 +37,11 @@ from ouroboros_tpu.crypto import ed25519_ref as jref
 from ouroboros_tpu.crypto import edwards as jed
 from ouroboros_tpu.crypto import vrf_jax as JV
 from ouroboros_tpu.crypto import vrf_ref as jvrf
+from ouroboros_tpu.crypto.jax_backend import JaxBackend
+from ouroboros_tpu_torch import csrc_compare as CC
 from ouroboros_tpu_torch.crypto import blake2b as B2
 from ouroboros_tpu_torch.crypto import ed25519 as E
+from ouroboros_tpu_torch.crypto import fold as FD
 from ouroboros_tpu_torch.crypto import kernels as K
 from ouroboros_tpu_torch.crypto import vrf as V
 from ouroboros_tpu_torch.crypto.precompute import PrecomputeCache
@@ -269,6 +274,69 @@ def test_vrf_verify_plain_matches_jax(vrf_lanes, vrf_rows):
     assert np.array_equal(vrf_rows.numpy(), want)
 
 
+# -- the verdict fold ---------------------------------------------------------
+
+# (ne, nv, nb, nk): a window with every part, and with each part empty
+FOLD_SHAPES = {"full": (64, 16, 8, 16), "ne0": (0, 16, 8, 16),
+               "nv0": (64, 0, 8, 16), "nb0": (64, 16, 0, 16),
+               "nk0": (64, 16, 8, 0)}
+
+
+@pytest.fixture(scope="module")
+def jax_fold():
+    """The JAX package's jitted fold, one program a shape."""
+    return JaxBackend(use_pallas=False, autotune=False)._fold_program
+
+
+@pytest.mark.parametrize("case, shape",
+                         [(c, "full") for c in CC.FOLD_CASES]
+                         + [("ed_and_vrf", s) for s in FOLD_SHAPES
+                            if s != "full"])
+def test_window_fold_plain_matches_jax_fold_program(jax_fold, case, shape):
+    """window_fold on CPU tensors (its plain version) against the JAX
+    package's `_fold_program` on the same packed buffer and owners, byte
+    for byte, and its index against the failures the case planted: none,
+    one of each kind, the lower of an Ed25519 and a VRF failure, failures
+    whose owners are FOLD_SENT, a random third; each part of the buffer
+    empty in turn."""
+    ne, nv, nb, nk = FOLD_SHAPES[shape]
+    rng = np.random.default_rng(CC.FOLD_CASES.index(case) + 7 * ne + nv)
+    arrays, want = CC.fold_case(rng, ne, nv, nb, nk, case)
+    K.reset_launches()
+    got = K.window_fold(_t(arrays[0]), ne, nv, nb, nk,
+                        *(_t(a) for a in arrays[1:]))
+    assert K.LAUNCHES["window_fold"] == 0
+    ref = np.asarray(jax_fold(ne, nv, nb, nk)(*(_j(a) for a in arrays)))
+    assert got.dtype == torch.uint8
+    assert got.numpy().tobytes() == ref.tobytes()
+    assert int.from_bytes(got[:4].numpy().tobytes(), "little") == want
+    packed = arrays[0]
+    beta = packed[ne + 130 * nv:ne + 130 * nv + 33 * nb]
+    assert got[4:].numpy().tobytes() == (packed[len(packed) - nk:].tobytes()
+                                         if nk else b"") + beta.tobytes()
+    if case in ("valid", "host_known"):
+        assert want == FD.FOLD_SENT
+    elif shape == "full":
+        assert want < FD.FOLD_SENT
+
+
+@pytest.mark.parametrize("shape", [(64, 16, 8, 16), (64, 0, 0, 0),
+                                   (0, 16, 0, 0), (0, 0, 3, 4)])
+def test_backend_fold_stages_the_owners_as_one_buffer(shape):
+    """TorchBackend._fold lays `_fold_owners`' four host arrays into one
+    staged buffer and hands the kernel views of it: on the CPU the
+    result is the plain fold's on the arrays as they are, a window of
+    betas and KES jobs alone (no lanes) included."""
+    from ouroboros_tpu_torch.crypto.torch_backend import TorchBackend
+    arrays, want = CC.fold_case(np.random.default_rng(sum(shape)), *shape,
+                                "random")
+    packed = _t(arrays[0])
+    got = TorchBackend(device="cpu")._fold(packed, *shape, *arrays[1:])
+    assert torch.equal(got, FD.fold_window(packed, *shape,
+                                           *(_t(a) for a in arrays[1:])))
+    assert int.from_bytes(got[:4].numpy().tobytes(), "little") == want
+
+
 # -- the wrappers' CPU side ------------------------------------------------------
 
 def test_wrappers_run_the_plain_version_on_cpu_tensors(ed_lanes, vrf_lanes,
@@ -381,6 +449,55 @@ def test_launch_path_launches_once_and_counts(stand_in):
     assert tuple(out.shape) == (7,)
 
 
+# the C signature of ouro_window_fold: packed, ed_own, vrf_own, gamma, c,
+# the slot, out, ne, nv, nb, nk, n, stream
+_FOLD_ENTRY = ctypes.CFUNCTYPE(ctypes.c_int, *[ctypes.c_void_p] * 7,
+                               *[ctypes.c_int] * 5, ctypes.c_void_p)
+
+
+def test_window_fold_launch_path_on_a_stand_in(monkeypatch):
+    """The card side of window_fold without a card (meta tensors and a
+    stand-in entry point, as `stand_in`): one call with the counts (ne,
+    nv, nb, nk, then n = ne + nv) and the stream, one launch counted, the
+    output of the fold's layout; one slot a stream, made at the first
+    fold on it and reused after; a buffer of the wrong length refused
+    before the launch."""
+    calls = []
+
+    def entry(*a):
+        calls.append(a[7:])
+        return 0
+    fn = _FOLD_ENTRY(entry)
+    stream = [0xBEEF]
+    monkeypatch.setattr(K, "_fns", {"window_fold": fn})
+    monkeypatch.setattr(K, "_raw_stream", lambda index: stream[0])
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
+    monkeypatch.setitem(K.LAUNCHES, "window_fold", 0)
+    monkeypatch.setattr(K, "_FOLD_SLOTS", {})
+    ne, nv, nb, nk = 256, 128, 64, 32
+
+    def args(extra=0):
+        return (_meta((ne + 130 * nv + 33 * nb + nk + extra,), torch.uint8),
+                ne, nv, nb, nk, _meta((ne,), torch.int32),
+                _meta((nv,), torch.int32), _meta((nv, 32), torch.uint8),
+                _meta((nv, 16), torch.uint8))
+    out = K.window_fold(*args())
+    assert out.device.type == "meta" and out.dtype == torch.uint8
+    assert tuple(out.shape) == (4 + nk + 33 * nb,)
+    assert calls == [(ne, nv, nb, nk, ne + nv, 0xBEEF)]
+    assert K.LAUNCHES["window_fold"] == 1
+    (slot,) = K._FOLD_SLOTS.values()
+    assert slot.dtype == torch.int32 and tuple(slot.shape) == (2,)
+    K.window_fold(*args())
+    stream[0] = 0xCAFE
+    K.window_fold(*args())
+    assert len(calls) == 3 and calls[2][-1] == 0xCAFE
+    assert list(K._FOLD_SLOTS) == [(None, 0xBEEF), (None, 0xCAFE)]
+    with pytest.raises(ValueError):
+        K.window_fold(*args(extra=1))
+    assert len(calls) == 3 and K.LAUNCHES["window_fold"] == 3
+
+
 def test_raw_stream_getter_is_part_of_this_torch():
     """The launch path reads the stream with torch's private
     `_cuda_getCurrentRawStream`, which a CPU-only build does not load:
@@ -409,18 +526,21 @@ def test_bind_maps_each_entry_point_to_its_kernels():
 
 
 def test_kernel_table_names_each_tpu_kernel():
-    """Seven TPU kernels, nine entries: the five of pallas_kernels.py and
-    the two chain kernels of experiments/microbench_field.py (each a
-    nested `kernel` of the function making it), the field chain and the
-    point chain in two launch shapes each."""
+    """Seven TPU kernels and one fused XLA program, ten entries: the five
+    of pallas_kernels.py, the two chain kernels of
+    experiments/microbench_field.py (each a nested `kernel` of the
+    function making it), the field chain and the point chain in two
+    launch shapes each, and the verdict fold that jax_backend jits
+    (`_fold_program`)."""
     lines = {"ed25519_split": "_ed25519_split_kernel",
              "vrf_verify": "_vrf_verify_kernel",
              "gamma8": "_gamma8_kernel", "kes_hash": "_kes_hash_kernel",
              "ed25519_verify": "_ed25519_verify_kernel",
              "field_chain": "kernel", "field_chain_lp": "kernel",
-             "point_chain": "kernel", "point_chain_x4": "kernel"}
+             "point_chain": "kernel", "point_chain_x4": "kernel",
+             "window_fold": "_fold_program"}
     assert set(K.KERNELS) == set(lines)
-    assert len({k.replaces for k in K.KERNELS.values()}) == 7
+    assert len({k.replaces for k in K.KERNELS.values()}) == 8
     import os
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     for name, k in K.KERNELS.items():
@@ -434,9 +554,9 @@ def test_kernel_table_names_each_tpu_kernel():
 def test_kernel_table_launch_shapes_match_the_sources():
     """threads_per_lane and block, which chip_smoke.py reports, are those
     of each kernel's launcher (its `extern "C"` function in the source,
-    which may hold several): `<<<blocks, BLOCK` with BLOCK a #define of
-    csrc/, and a `*_THREADS_PER_LANE` #define used in the launcher where
-    a lane has several threads (one otherwise)."""
+    which may hold several), window_fold's among them: `<<<blocks, BLOCK`
+    with BLOCK a #define of csrc/, and a `*_THREADS_PER_LANE` #define used
+    in the launcher where a lane has several threads (one otherwise)."""
     import os
     import re
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -329,8 +329,9 @@ def test_entry_point_e2e_on_the_cpu(capsys):
 def test_csrc_compare_needs_the_card_and_feeds_every_kernel():
     """The source-variant comparison raises without a card before it
     builds anything, and its random inputs suit every kernel: each
-    tensor is of the wrapper's type and lane count (the chains and
-    kes_hash run through their plain versions here)."""
+    tensor is of the wrapper's type and lane count (the chains, kes_hash
+    and the fold run through their plain versions here; the fold's n
+    lanes are its VRF lanes, beside its buffer's other parts)."""
     from ouroboros_tpu_torch import csrc_compare as CC
     with pytest.raises(RuntimeError, match="no CUDA device"):
         CC.main(["no-such-dir"])
@@ -339,6 +340,16 @@ def test_csrc_compare_needs_the_card_and_feeds_every_kernel():
     for name in K.KERNELS:
         args = CC.random_args(name, rng, "cpu", 5)
         tensors = [a for a in args if torch.is_tensor(a)]
+        if name == "window_fold":
+            _packed, ne, nv, nb, nk = args[:5]
+            assert nv == 5
+            assert [(t.dtype, tuple(t.shape)) for t in tensors] == [
+                (torch.uint8, (ne + 130 * nv + 33 * nb + nk,)),
+                (torch.int32, (ne,)), (torch.int32, (nv,)),
+                (torch.uint8, (nv, 32)), (torch.uint8, (nv, 16))]
+            assert torch.equal(K.window_fold(*args),
+                               K.KERNELS[name].plain(*args))
+            continue
         assert all(t.shape[-1] == 5 for t in tensors), name
         assert all(t.dtype in (torch.uint32, torch.int32)
                    for t in tensors), name
